@@ -1,0 +1,65 @@
+"""Carry k-centers state between the JAX package and this one.
+
+The two share the frame layout (``(3*A_pad, n_pad)`` float32, rows
+``i*A_pad + a``, frame axis minor) and the state layout of the chunk
+kernel, so a JAX ``PreparedRMSDFrames`` and the arguments and results
+of ``kcenters_chunk_skip_pallas`` cross as numpy arrays.
+"""
+
+import numpy as np
+import torch
+
+from .cluster.engine import TILE, PreparedRMSDFrames
+from .ops.kcenters_step import make_state
+from .util.device import resolve_device
+
+__all__ = ['prepared_from_numpy', 'state_from_numpy', 'result_to_numpy']
+
+
+def prepared_from_numpy(frames_r, g, n, n_atoms, tile=TILE, device=None):
+    """The port's prepared frames from the numpy arrays of a JAX
+    ``PreparedRMSDFrames`` (fp32). Only the frame axis is re-padded, to
+    a multiple of ``tile``; rows, ``A_pad`` and the ``g = 1.0`` padding
+    stay as they are."""
+    device = resolve_device(frames_r, device)
+    frames_r = np.asarray(frames_r, np.float32)
+    g = np.asarray(g, np.float32).reshape(1, -1)
+    rows = frames_r.shape[0]
+    n_pad = -(-int(n) // tile) * tile
+    frames = np.zeros((rows, n_pad), np.float32)
+    frames[:, :n] = frames_r[:, :n]
+    g_out = np.ones((1, n_pad), np.float32)
+    g_out[:, :n] = g[:, :n]
+    return PreparedRMSDFrames(torch.from_numpy(frames).to(device),
+                              torch.from_numpy(g_out).to(device),
+                              int(n), int(n_atoms), int(tile))
+
+
+def state_from_numpy(dist, assig, tmax, rows, gidx0, max0, i_offset,
+                     n_total, dist_cutoff, device=None):
+    """The chunk state from the arguments of the JAX chunk kernel:
+    (1, n_pad) ``dist``/``assig`` with -inf pad distances, the (1,
+    t_pad) ``tmax`` carry and the scalars."""
+    device = resolve_device(dist, device)
+
+    def tensor(x, dtype):
+        return torch.from_numpy(np.array(x, dtype=dtype)).to(device)
+    return make_state(tensor(dist, np.float32), tensor(assig, np.int32),
+                      tensor(tmax, np.float32), rows,
+                      int(np.asarray(gidx0).reshape(())),
+                      float(np.asarray(max0).reshape(())),
+                      int(np.asarray(i_offset).reshape(())),
+                      int(np.asarray(n_total).reshape(())),
+                      float(np.asarray(dist_cutoff).reshape(())))
+
+
+def result_to_numpy(state, ctr, skipcnt):
+    """A chunk's outcome in the return layout of the JAX chunk kernel:
+    ``(dist (1, n_pad), assig (1, n_pad), ctr (n_iters, 1), next_gidx
+    (1, 1), next_max (1, 1), tmax (1, t_pad), skipcnt (n_iters, 1))``."""
+    gidx, md, _ = state.scalars()
+    return (state.dist.cpu().numpy(), state.assig.cpu().numpy(),
+            ctr.cpu().numpy().reshape(-1, 1),
+            np.full((1, 1), gidx, np.int32),
+            np.full((1, 1), md, np.float32),
+            state.tmax.cpu().numpy(), skipcnt.cpu().numpy().reshape(-1, 1))

@@ -1,0 +1,209 @@
+"""enspara_tpu_torch tests that need no JAX: the import boundary, the
+kernel build and its input guards, and (marked ``cuda``, skipped
+without a card) the CUDA kernel against its plain version.
+
+This file imports no jax, so on a machine without it the card tests run
+with ``python -m pytest --noconftest -m cuda tests/test_torch_port.py``.
+It also holds the helpers the JAX parity tests share.
+"""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from enspara_tpu_torch.cluster import engine
+from enspara_tpu_torch.convert import result_to_numpy
+from enspara_tpu_torch.msm import (assigns_to_counts_device,
+                                   transpose_timescales_device)
+from enspara_tpu_torch.ops import _build, kcenters_step
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def basin_data(rng, n, a, n_basins, noise=0.2, dwell=64):
+    """Temporally ordered metastable-basin frames (the generator of
+    tests/test_kcenters_skip.py), where tiles become skippable. The
+    noise keeps RMSDs within a basin far above the fp32 floor, so
+    farthest-point picks are tie-free in fp32."""
+    templates = rng.normal(size=(n_basins, a, 3)).astype(np.float32)
+    seg = np.cumsum(rng.random(n) < 1.0 / dwell)
+    basin = rng.integers(0, n_basins, size=seg.max() + 1)[seg]
+    return (templates[basin]
+            + noise * rng.normal(size=(n, a, 3)).astype(np.float32))
+
+
+def assert_rmsd_close(actual, desired, gsum_max, n_atoms):
+    """RMSD arrays agree: the same +-inf entries, and elsewhere
+    ``|a^2 - d^2| <= 1e-5 d^2 + 16 eps32 gsum_max / n_atoms``.
+
+    fp32 QCP recovers the msd as ``gsum - 2*lambda_max``, so another
+    summation order moves it by a few ulp of ``gsum / n_atoms`` whatever
+    its size: near zero the bar is on the msd, not on the RMSD."""
+    actual = np.asarray(actual, np.float64)
+    desired = np.asarray(desired, np.float64)
+    assert actual.shape == desired.shape
+    inf = ~np.isfinite(desired)
+    np.testing.assert_array_equal(actual[inf], desired[inf])
+    a, d = actual[~inf], desired[~inf]
+    floor = 16 * np.finfo(np.float32).eps * gsum_max / n_atoms
+    err = np.abs(a * a - d * d)
+    bad = err > 1e-5 * d * d + floor
+    assert not bad.any(), 'msd differs by %g at %d entries (floor %g)' % (
+        err.max(), bad.sum(), floor)
+
+
+def fresh_arrays(n, n_pad):
+    """A fresh run's (1, n_pad) dist (-inf past n) and assig."""
+    dist = np.full((1, n_pad), np.inf, np.float32)
+    dist[0, n:] = -np.inf
+    return dist, np.full((1, n_pad), -1, np.int32)
+
+
+def _state(prep, n_total, cutoff=0.0):
+    dist, assig = fresh_arrays(prep.n, prep.frames_r.shape[1])
+    dev = prep.frames_r.device
+    return kcenters_step.start_state(
+        torch.from_numpy(dist).to(dev), torch.from_numpy(assig).to(dev),
+        prep.frames_r.shape[0], prep.tile, 0, n_total, cutoff)
+
+
+def test_main_path_imports_no_jax():
+    """The port's main path leaves jax out of the process and takes only
+    exception, ra and citation from the JAX package. A subprocess,
+    because the test session itself has imported jax."""
+    code = (
+        'import sys\n'
+        'import enspara_tpu_torch.cluster.engine, enspara_tpu_torch.cluster\n'
+        'import enspara_tpu_torch.msm, enspara_tpu_torch.convert\n'
+        'import enspara_tpu_torch.util.device\n'
+        'assert "jax" not in sys.modules\n'
+        'bad = [m for m in sys.modules if m.startswith("enspara_tpu.")\n'
+        '       and m.split(".")[1] not in ("exception", "ra", "citation")]\n'
+        'assert not bad, bad\n')
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, '-c', code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+def _small_prep_state(tile=64):
+    X = basin_data(np.random.default_rng(1), 256, 8, n_basins=4)
+    prep = engine.prepare_rmsd_frames(X, tile=tile)
+    return prep, _state(prep, 8)
+
+
+@pytest.mark.parametrize('bad', ['float64', 'rows', 'tile', 'strided_g',
+                                 'tmax_shape', 'n_iters', 'meta'])
+def test_chunk_rejects_what_the_kernel_does_not_take(bad):
+    prep, state = _small_prep_state()
+    if bad == 'float64':
+        prep = prep._replace(frames_r=prep.frames_r.double())
+    elif bad == 'rows':
+        prep = prep._replace(frames_r=prep.frames_r[:21])
+    elif bad == 'tile':
+        prep = prep._replace(tile=48)
+    elif bad == 'strided_g':
+        prep = prep._replace(g=torch.ones(256, 2)[:, :1].t())
+    elif bad == 'tmax_shape':
+        state = state._replace(tmax=state.tmax[:, :64].contiguous())
+    elif bad == 'meta':
+        # neither CPU nor CUDA: refused, not run some other way
+        prep = prep._replace(frames_r=prep.frames_r.to('meta'),
+                             g=prep.g.to('meta'))
+        state = kcenters_step.KCentersState(*(t.to('meta') for t in state))
+    with pytest.raises(ValueError):
+        kcenters_step.kcenters_chunk(prep, state,
+                                     0 if bad == 'n_iters' else 4)
+
+
+def test_cpu_path_launches_no_kernel():
+    prep, state = _small_prep_state()
+    before = kcenters_step.kcenters_chunk.n_launches
+    ctr, skipcnt = kcenters_step.kcenters_chunk(prep, state, 4)
+    assert (ctr.numpy() >= 0).all() and (skipcnt.numpy() >= 0).all()
+    assert kcenters_step.kcenters_chunk.n_launches == before
+
+
+def test_build_raises_without_nvcc(monkeypatch, tmp_path):
+    """No nvcc: the builder raises a clear error and builds nothing
+    (there is no fallback)."""
+    monkeypatch.setenv('PATH', str(tmp_path))
+    monkeypatch.setenv('CUDA_HOME', str(tmp_path))
+    monkeypatch.setattr(_build, 'BUILD_DIR', str(tmp_path / 'build'))
+    _build.load_library.cache_clear()
+    try:
+        with pytest.raises(RuntimeError, match='nvcc not found'):
+            _build.load_library('kcenters_step')
+    finally:
+        _build.load_library.cache_clear()
+    assert not (tmp_path / 'build').exists()
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device (torch.cuda.is_available() is '
+                    'False)')
+    return torch.device('cuda')
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('n,tile,cutoff', [
+    (8192, 256, 0.0),
+    (8000, 128, 0.0),        # -inf padded tail
+    (8192, 1024, 0.0),
+    (8192, 256, 0.9),        # stops on the cutoff inside the chunk
+], ids=['t256', 'padded_t128', 't1024', 'cutoff'])
+def test_cuda_kernel_matches_plain(cuda, n, tile, cutoff):
+    """The CUDA kernel against the plain version on the card, and the
+    kernel with skip on and off bit for bit."""
+    X = basin_data(np.random.default_rng(3), n, 16, n_basins=24)
+    prep = engine.prepare_rmsd_frames(X, tile=tile, device=cuda)
+
+    def run(fn, **kw):
+        state = _state(prep, 96, cutoff)
+        ctr, skipcnt = fn(prep, state, 96, **kw)
+        return result_to_numpy(state, ctr, skipcnt)
+
+    before = kcenters_step.kcenters_chunk.n_launches
+    on = run(kcenters_step.kcenters_chunk)
+    off = run(kcenters_step.kcenters_chunk, skip=False)
+    torch.cuda.synchronize()
+    assert kcenters_step.kcenters_chunk.n_launches == before + 2 * 97
+    plain = run(kcenters_step.kcenters_chunk_plain)
+    for x, y in zip(on, off):
+        np.testing.assert_array_equal(x, y)
+    if tile <= 256:
+        assert on[6][on[6] > 0].sum() > 0, 'basin data must skip tiles'
+    for k in (1, 2, 3, 6):
+        np.testing.assert_array_equal(on[k], plain[k])
+    g = 2 * float(prep.g.max())
+    for k in (0, 4, 5):
+        assert_rmsd_close(on[k], plain[k], g, 16)
+    placed = int((on[2] >= 0).sum())
+    assert placed == 96 if cutoff == 0.0 else 0 < placed < 96
+
+
+@pytest.mark.cuda
+def test_cuda_pipeline_matches_cpu(cuda):
+    """The whole small pipeline on the card against the same on the
+    CPU (the plain versions)."""
+    X = basin_data(np.random.default_rng(4), 6000, 16, n_basins=30)
+    out = {}
+    for dev in ('cpu', cuda):
+        res = engine.kcenters_device_fused(X, n_clusters=80, device=dev)
+        a = res.assignments.reshape(3, -1)
+        counts = assigns_to_counts_device(a, np.ones_like(a, bool), 5, 80,
+                                          device=dev)
+        out[str(dev)] = (res, counts.cpu().numpy(),
+                         transpose_timescales_device(counts, 8))
+    (rc, cc, (_, wc, vc)), (rg, cg, (_, wg, vg)) = out.values()
+    np.testing.assert_array_equal(rg.center_indices, rc.center_indices)
+    np.testing.assert_array_equal(rg.assignments, rc.assignments)
+    np.testing.assert_array_equal(cg, cc)
+    np.testing.assert_allclose(wg, wc, atol=1e-4)
+    np.testing.assert_allclose(vg[:, 0], vc[:, 0], atol=1e-5)
