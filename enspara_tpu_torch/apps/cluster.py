@@ -1,0 +1,266 @@
+"""`cluster` app: cluster trajectories into a state space by RMSD
+(counterpart of ``enspara_tpu/apps/cluster.py``, same flags, checks and
+messages).
+
+    python -m enspara_tpu_torch.apps.cluster --trajectories ... \\
+        --topology ... --atoms 'name CA' --algorithm khybrid \\
+        --cluster-number 1000 --subsample 10 --distances d.h5 \\
+        --assignments a.h5 --center-features c.pkl
+
+It runs on the CUDA device; ``ENSPARA_TPU_PLATFORM=cpu`` runs it on the
+CPU, where every kernel takes its plain version. Options whose
+machinery is not ported yet raise ``ImproperlyConfigured`` naming the
+ROADMAP.md step that brings them.
+"""
+
+import argparse
+import logging
+import os
+import sys
+
+import numpy as np
+
+from enspara_tpu import exception, ra
+from enspara_tpu.util.log import timed
+
+from ..cluster import KCenters, KHybrid, KMedoids, util
+from ..util.backend import select_device
+from . import util as apputil
+
+logger = logging.getLogger(__name__)
+
+FEATURE_DISTANCES = ['euclidean', 'manhattan']
+TRAJECTORY_DISTANCES = ['rmsd']
+ALGORITHMS = {'kcenters': KCenters, 'khybrid': KHybrid,
+              'kmedoids': KMedoids}
+
+
+def _not_ported(what, step):
+    return exception.ImproperlyConfigured(
+        '%s is not ported to enspara_tpu_torch yet: ROADMAP.md queue 1 '
+        'step %s' % (what, step))
+
+
+def process_command_line(argv):
+    parser = argparse.ArgumentParser(
+        prog='cluster',
+        formatter_class=argparse.ArgumentDefaultsHelpFormatter,
+        description='Cluster a set (or several sets) of trajectories '
+                    'into a single state space based upon RMSD.')
+
+    input_args = parser.add_argument_group('Input Settings')
+    input_data_group = parser.add_mutually_exclusive_group(required=True)
+    input_data_group.add_argument(
+        '--features', nargs='+',
+        help='The h5 file containing observations and features.')
+    input_data_group.add_argument(
+        '--trajectories', nargs='+', action='append',
+        help='List of paths to aligned trajectory files to cluster.')
+    input_args.add_argument(
+        '--topology', action='append', dest='topologies',
+        help='The topology file for the trajectories, once per '
+             '--trajectories flag.')
+
+    cluster_args = parser.add_argument_group('Clustering Settings')
+    cluster_args.add_argument(
+        '--algorithm', required=True,
+        choices=['khybrid', 'kcenters', 'kmedoids'],
+        help='The clustering algorithm to use.')
+    cluster_args.add_argument(
+        '--atoms', action='append',
+        help='Atom selection used for RMSD clustering; once globally or '
+             'once per --trajectories flag.')
+    cluster_args.add_argument(
+        '--cluster-radius', default=None, type=float,
+        help='Produce clusters with a maximum distance to cluster '
+             'center of this value.')
+    cluster_args.add_argument(
+        '--cluster-number', default=None, type=int,
+        help='Produce at least this number of clusters.')
+    cluster_args.add_argument(
+        '--cluster-distance', default=None,
+        choices=FEATURE_DISTANCES + TRAJECTORY_DISTANCES,
+        help='The metric for measuring distances.')
+    cluster_args.add_argument(
+        '--cluster-iterations', default=None, type=int,
+        help='The number of refinement iterations to perform (khybrid/'
+             'kmedoids).')
+    cluster_args.add_argument(
+        '--init-center-inds', default=None, type=str,
+        help='Path to a .npy of initial center positions (restarts).')
+    cluster_args.add_argument(
+        '--init-assignments', default=None, type=str,
+        help='Path to an .h5 of initial assignments (restarts).')
+    cluster_args.add_argument(
+        '--init-distances', default=None, type=str,
+        help='Path to an .h5 of initial distances (restarts).')
+    cluster_args.add_argument(
+        '--checkpoint', default=None, type=str,
+        help='Checkpoint directory (not ported yet).')
+    cluster_args.add_argument(
+        '--subsample', default=1, type=int,
+        help='Take only every nth frame when loading trajectories.')
+    cluster_args.add_argument(
+        '--random-state', default=None, type=int,
+        help='Random seed for medoid proposals.')
+    cluster_args.add_argument(
+        '--locality-sort', default=False, action='store_true',
+        help='Reorder frames by a 1-pivot RMSD key before clustering '
+             '(not ported yet).')
+    cluster_args.add_argument(
+        '--precision', default='fp32', choices=['fp32', 'bf16'],
+        help='Frame precision of the k-centers stream (bf16 is not '
+             'ported yet).')
+
+    output_args = parser.add_argument_group('Output Settings')
+    output_args.add_argument(
+        '--no-reassign', default=False, action='store_true',
+        help='Do not do a reassigment step after subsampled clustering.')
+    output_args.add_argument(
+        '--distances', required=True, action=apputil.readable_dir,
+        help='The location to write the distances file.')
+    output_args.add_argument(
+        '--center-features', required=True, action=apputil.readable_dir,
+        help='The location to write the cluster center structures.')
+    output_args.add_argument(
+        '--assignments', required=True, action=apputil.readable_dir,
+        help='The location to write assignments of frames to clusters.')
+    output_args.add_argument(
+        '--center-indices', required=False, action=apputil.readable_dir,
+        help='Location for cluster center indices output (npy).')
+
+    args = parser.parse_args(argv[1:])
+
+    if args.features:
+        raise _not_ported('--features', '5b')
+    if args.trajectories and args.topologies:
+        args.trajectories = apputil.expand_files(args.trajectories)
+        if not args.cluster_distance or args.cluster_distance == 'rmsd':
+            args.cluster_distance = 'rmsd'
+        else:
+            raise exception.ImproperlyConfigured(
+                'Option --cluster-distance must be rmsd when clustering '
+                'trajectories.')
+        if not args.atoms:
+            raise exception.ImproperlyConfigured(
+                'Option --atoms is required when clustering '
+                'trajectories.')
+        if len(args.atoms) == 1:
+            args.atoms = args.atoms * len(args.trajectories)
+        elif len(args.atoms) != len(args.trajectories):
+            raise exception.ImproperlyConfigured(
+                'Flag --atoms must be provided either once or the same '
+                'number of times --trajectories is supplied.')
+        if len(args.topologies) != len(args.trajectories):
+            raise exception.ImproperlyConfigured(
+                'The number of --topology and --trajectory flags must '
+                'agree.')
+    else:
+        raise exception.ImproperlyConfigured(
+            'Either --features or both of --trajectories and '
+            '--topologies are required.')
+
+    if args.cluster_radius is None and args.cluster_number is None:
+        raise exception.ImproperlyConfigured(
+            'At least one of --cluster-radius and --cluster-number is '
+            'required to cluster.')
+
+    args.Clusterer = ALGORITHMS[args.algorithm]
+    if args.Clusterer is KCenters and args.cluster_iterations is not None:
+        raise exception.ImproperlyConfigured(
+            '--cluster-iterations only has an effect when using an '
+            'iterative clustering scheme (e.g. khybrid).')
+    if args.Clusterer is KMedoids and args.cluster_radius is not None:
+        raise exception.ImproperlyConfigured(
+            '--cluster-radius only has an effect when using kcenters or '
+            'khybrid.')
+    if args.precision != 'fp32':
+        raise _not_ported('--precision bf16', '3')
+    if args.locality_sort:
+        raise _not_ported('--locality-sort', '3')
+    if args.Clusterer is not KMedoids:
+        for name in (args.init_center_inds, args.init_distances,
+                     args.init_assignments):
+            if name:
+                raise exception.ImproperlyConfigured(
+                    '--init-center-inds, --init-distances, and '
+                    '--init-assignments are only implemented for '
+                    'kmedoids')
+    if args.checkpoint:
+        raise _not_ported('--checkpoint', '5b')
+    return args
+
+
+def _flat(path):
+    arr = ra.load(path)
+    return arr._data if isinstance(arr, ra.RaggedArray) \
+        else np.asarray(arr).reshape(-1)
+
+
+def fit(args, data, device):
+    """Build the parsed ``--algorithm``'s estimator on ``device`` and
+    fit it to ``data`` (k-medoids restarts from the ``--init-*``
+    files)."""
+    kwargs = {}
+    if args.cluster_iterations is not None:
+        if args.Clusterer is KHybrid:
+            kwargs['kmedoids_updates'] = int(args.cluster_iterations)
+        elif args.Clusterer is KMedoids:
+            kwargs['n_iters'] = int(args.cluster_iterations)
+    if args.cluster_radius is not None:
+        kwargs['cluster_radius'] = args.cluster_radius
+    if args.random_state is not None:
+        kwargs['random_state'] = args.random_state
+    clustering = args.Clusterer(metric=args.cluster_distance,
+                                n_clusters=args.cluster_number,
+                                device=device, **kwargs)
+    if args.Clusterer is KMedoids:
+        restart = {}
+        if args.init_distances:
+            restart['distances'] = _flat(args.init_distances)
+        if args.init_assignments:
+            restart['assignments'] = _flat(args.init_assignments)
+        if args.init_center_inds:
+            restart['cluster_center_inds'] = np.load(args.init_center_inds)
+        return clustering.fit(data, **restart)
+    return clustering.fit(data)
+
+
+def center_indices(result, args):
+    """``(trajectory, frame)`` of each center in full-trajectory frames."""
+    return [(t, f * args.subsample) for t, f in result.center_indices]
+
+
+def main(argv=None):
+    if argv is None:
+        argv = sys.argv
+    device = select_device()   # honors $ENSPARA_TPU_PLATFORM
+    if os.environ.get('ENSPARA_TPU_COORDINATOR'):
+        raise _not_ported('Multi-host mode (ENSPARA_TPU_COORDINATOR)', '11')
+
+    args = process_command_line(argv)
+    lengths, data = util.load_trjs_or_features(args)
+    clustering = fit(args, data, device)
+    del data
+    logger.info('Clustered %s frames into %s clusters in %s seconds.',
+                sum(lengths), len(clustering.centers_), clustering.runtime_)
+
+    result = clustering.result_.partition(lengths)
+    with timed('Wrote center indices in %.2f sec.', logger.info):
+        util.write_centers_indices(args.center_indices,
+                                   center_indices(result, args))
+    with timed('Wrote center structures in %.2f sec.', logger.info):
+        util.write_centers(result, args)
+    util.write_assignments_and_distances_with_reassign(result, args,
+                                                       device=device)
+    logger.info('Success! Data can be found in %s.',
+                os.path.dirname(args.distances))
+    return 0
+
+
+def entry_point():
+    return main(sys.argv)
+
+
+if __name__ == '__main__':
+    sys.exit(main(sys.argv))

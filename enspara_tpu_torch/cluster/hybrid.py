@@ -1,0 +1,101 @@
+"""K-hybrid clustering: k-centers seeding + k-medoids refinement
+(counterpart of ``enspara_tpu/cluster/hybrid.py``)."""
+
+import logging
+
+import numpy as np
+
+from enspara_tpu.citation import cite
+from enspara_tpu.exception import ImproperlyConfigured
+
+from . import engine, util
+from .engine_kmedoids import kmedoids_sweeps_device
+from .kcenters import kcenters as _kcenters
+from .kmedoids import _kmedoids_iterations
+from .util import run_timed
+from ..util.backend import check_random_state
+
+logger = logging.getLogger(__name__)
+
+__all__ = ['KHybrid', 'hybrid', 'hybrid_device']
+
+
+class KHybrid(util.MolecularClusterMixin):
+    """Sklearn-style estimator: k-centers to place centers, then
+    ``kmedoids_updates`` PAM sweeps to refine them (on the card for data
+    on a CUDA device)."""
+
+    def __init__(self, metric, n_clusters=None, cluster_radius=None,
+                 kmedoids_updates=5, random_first_center=False,
+                 random_state=None, device=None):
+        if n_clusters is None and cluster_radius is None:
+            raise ImproperlyConfigured(
+                'Either n_clusters or cluster_radius is required for '
+                'KHybrid clustering')
+        self.metric = metric
+        self.n_clusters = n_clusters
+        self.cluster_radius = cluster_radius
+        self.kmedoids_updates = kmedoids_updates
+        self.random_first_center = random_first_center
+        self.random_state = random_state
+        self.device = device
+
+    def fit(self, X, init_centers=None):
+        conf = dict(n_iters=self.kmedoids_updates,
+                    n_clusters=self.n_clusters,
+                    dist_cutoff=self.cluster_radius,
+                    random_first_center=self.random_first_center,
+                    random_state=self.random_state,
+                    device=self.device)
+        self.result_, self.runtime_ = run_timed(
+            hybrid, X, self.metric, init_centers=init_centers, **conf)
+        return self
+
+
+@cite('khybrid')
+def hybrid(X, distance_method, n_iters=5, n_clusters=None,
+           dist_cutoff=None, random_first_center=False,
+           init_centers=None, random_state=None, device=None):
+    """K-centers, then ``n_iters`` PAM sweeps from its result. The
+    first-center seed is drawn from ``random_state`` before the PAM
+    seed, as in the JAX package."""
+    random_state = check_random_state(random_state)
+
+    result = _kcenters(
+        X, distance_method, n_clusters=n_clusters,
+        dist_cutoff=dist_cutoff, init_centers=init_centers,
+        random_first_center=random_first_center,
+        random_state=(random_state.randint(2 ** 31)
+                      if random_first_center else None),
+        device=device)
+
+    if n_iters <= 0:
+        return result
+
+    metric = util._get_distance_method(distance_method)
+    return _kmedoids_iterations(
+        X, metric, n_iters,
+        list(np.asarray(result.center_indices)),
+        np.asarray(result.assignments),
+        np.asarray(result.distances),
+        random_state=random_state, device=device)
+
+
+def hybrid_device(X, metric='rmsd', n_iters=5, n_clusters=None,
+                  dist_cutoff=None, seed=0, bucket_factor=8, device=None):
+    """K-hybrid with both stages on the device: the k-centers loop seeds
+    the device PAM sweeps, from frames prepared on the device once.
+
+    Returns a ClusterResult (centers gathered host-side at the end).
+    """
+    engine.require_rmsd(metric)
+    xyz = X.xyz if hasattr(X, 'xyz') else X
+    prep = engine.prepare_rmsd_frames(xyz, device=device)
+    res = engine.kcenters_device_fused(prep, n_clusters=n_clusters,
+                                       dist_cutoff=dist_cutoff)
+    m, d, a = kmedoids_sweeps_device(
+        prep, metric, res.assignments, res.distances, res.center_indices,
+        n_sweeps=n_iters, seed=seed, bucket_factor=bucket_factor)
+    return util.ClusterResult(center_indices=list(m), assignments=a,
+                              distances=d,
+                              centers=util.gather_frames(xyz, m))

@@ -1,41 +1,50 @@
-"""K-centers (Gonzalez farthest-point) clustering by RMSD (counterpart
-of ``enspara_tpu/cluster/kcenters.py`` for metric 'rmsd').
+"""K-centers (Gonzalez farthest-point) clustering (counterpart of
+``enspara_tpu/cluster/kcenters.py``).
 
-The search runs in :func:`enspara_tpu_torch.cluster.engine.
-kcenters_device_fused`: on the card, the tri-skip CUDA kernel.
+Metric 'rmsd' runs in :func:`enspara_tpu_torch.cluster.engine.
+kcenters_device_fused` (the tri-skip CUDA kernel on the card); a warm
+start from ``init_centers`` assigns the frames to them first through
+:func:`~enspara_tpu_torch.cluster.engine.assign_device` (the all-pairs
+CUDA kernel). Callable metrics run the host loop with the reference's
+semantics.
 """
+
+import logging
+
+import numpy as np
 
 from enspara_tpu.citation import cite
 from enspara_tpu.exception import ImproperlyConfigured
 
-from . import engine
-from .util import ClusterResult, gather_frames
+from . import engine, util
+from .util import run_timed
+from ..util.backend import check_random_state
+
+logger = logging.getLogger(__name__)
 
 __all__ = ['KCenters', 'kcenters']
 
-_INIT_CENTERS_TODO = (
-    'init_centers needs the all-pairs QCP assignment kernel '
-    '(qcp_rmsd_matrix_pallas), which is not ported yet: ROADMAP.md '
-    'queue 1 step 5, queue 2 kernel 5')
 
-
-class KCenters:
-    """Sklearn-style k-centers estimator for metric 'rmsd'.
+class KCenters(util.MolecularClusterMixin):
+    """Sklearn-style k-centers estimator.
 
     Parameters
     ----------
-    metric : 'rmsd'
+    metric : 'rmsd' or a callable ``f(X, center) -> distances``
     n_clusters : int, optional
     cluster_radius : float, optional
         Stop adding centers once the max frame-center distance falls to
         this value. At least one of n_clusters/cluster_radius is needed.
+    random_first_center : bool
+        Seed the search from a uniformly random frame instead of frame
+        0; ``random_state`` pins the draw.
     device : torch device, optional
         Where to cluster host (numpy) input; tensors cluster where they
         lie.
     """
 
     def __init__(self, metric, n_clusters=None, cluster_radius=None,
-                 device=None):
+                 random_first_center=False, random_state=None, device=None):
         if n_clusters is None and cluster_radius is None:
             raise ImproperlyConfigured(
                 'Either n_clusters or cluster_radius is required for '
@@ -43,37 +52,43 @@ class KCenters:
         self.metric = metric
         self.n_clusters = n_clusters
         self.cluster_radius = cluster_radius
+        self.random_first_center = random_first_center
+        self.random_state = random_state
         self.device = device
 
     def fit(self, X, init_centers=None):
-        self.result_ = kcenters(X, self.metric, n_clusters=self.n_clusters,
-                                dist_cutoff=self.cluster_radius,
-                                init_centers=init_centers,
-                                device=self.device)
+        conf = self.get_params()
+        conf['distance_method'] = conf.pop('metric')
+        conf['dist_cutoff'] = conf.pop('cluster_radius')
+        self.result_, self.runtime_ = run_timed(
+            kcenters, X, init_centers=init_centers, **conf)
         return self
 
-    @property
-    def labels_(self):
-        return self.result_.assignments
+    def get_params(self, deep=True):
+        return {'metric': self.metric, 'n_clusters': self.n_clusters,
+                'cluster_radius': self.cluster_radius,
+                'random_first_center': self.random_first_center,
+                'random_state': self.random_state, 'device': self.device}
 
-    @property
-    def distances_(self):
-        return self.result_.distances
-
-    @property
-    def center_indices_(self):
-        return self.result_.center_indices
-
-    @property
-    def centers_(self):
-        return self.result_.centers
+    def set_params(self, **params):
+        for k, v in params.items():
+            setattr(self, k, v)
+        return self
 
 
 @cite('kcenters')
 def kcenters(traj, distance_method, n_clusters=None, dist_cutoff=None,
-             init_centers=None, device=None):
-    """Functional k-centers by RMSD. ``traj`` is ``(n, n_atoms, 3)``
-    coordinates (numpy, a tensor, or anything with ``.xyz``).
+             init_centers=None, random_first_center=False,
+             random_state=None, device=None):
+    """Functional k-centers. ``traj`` is ``(n, n_atoms, 3)`` coordinates
+    (numpy, a tensor, or anything with ``.xyz``).
+
+    ``init_centers`` warm-starts from given structures: every frame is
+    assigned to them first, and each must own at least one frame.
+    ``random_first_center=True`` seeds the search from a uniformly
+    random frame (``random_state`` pins the draw: a ``RandomState``
+    draws ``randint(n)``, anything else ``default_rng(random_state)
+    .integers(n)``).
 
     Returns a :class:`~enspara_tpu_torch.cluster.util.ClusterResult`
     with host arrays: assignments and distances of every frame, the
@@ -82,18 +97,108 @@ def kcenters(traj, distance_method, n_clusters=None, dist_cutoff=None,
     if n_clusters is None and dist_cutoff is None:
         raise ImproperlyConfigured(
             "KCenters must specify 'n_clusters' or 'dist_cutoff'")
-    if distance_method != 'rmsd':
-        raise NotImplementedError(
-            "only distance_method='rmsd' is ported, got %r: the other "
-            'metrics are ROADMAP.md queue 1 step 5' % (distance_method,))
-    if init_centers is not None and len(init_centers):
-        raise NotImplementedError(_INIT_CENTERS_TODO)
+
+    metric_name = util._metric_name(distance_method)
     xyz = traj.xyz if hasattr(traj, 'xyz') else traj
-    res = engine.kcenters_device_fused(xyz, n_clusters=n_clusters,
-                                       dist_cutoff=dist_cutoff,
-                                       device=device)
+
+    if random_first_center:
+        if init_centers is not None and len(init_centers):
+            raise ImproperlyConfigured(
+                "'random_first_center' and 'init_centers' both pick "
+                'the starting center; pass one or the other')
+        if isinstance(random_state, np.random.RandomState):
+            first = int(check_random_state(random_state).randint(len(xyz)))
+        else:
+            first = int(np.random.default_rng(random_state)
+                        .integers(len(xyz)))
+        init_centers = [traj[first] if hasattr(traj, 'xyz')
+                        else xyz[first]]
+
+    if metric_name is not None:
+        return _kcenters_fast(xyz, metric_name, n_clusters, dist_cutoff,
+                              init_centers, device)
+    return _kcenters_host(traj, util._get_distance_method(distance_method),
+                          n_clusters, dist_cutoff, init_centers)
+
+
+def _init_center_data(init_centers):
+    return [np.asarray(c.xyz[0] if hasattr(c, 'xyz') else
+                       (c.cpu() if hasattr(c, 'cpu') else c))
+            for c in init_centers]
+
+
+def _reject_ownerless(init_ctr_inds, n_init, init_assignments):
+    if len(init_ctr_inds) != n_init:
+        owned = set(np.unique(np.asarray(init_assignments)).tolist())
+        missing = sorted(set(range(n_init)) - owned)
+        raise ImproperlyConfigured(
+            'init_centers %s own no frames (duplicated centers, or '
+            'centers dominated by another init center); remove them '
+            'from the warm start' % missing)
+
+
+def _kcenters_fast(X, metric, n_clusters, dist_cutoff, init_centers,
+                   device):
+    engine.require_rmsd(metric)
+    prep = engine.prepare_rmsd_frames(X, device=device)
+    n_init = 0
+    init_distances = init_assignments = init_ctr_inds = None
+    init_center_data = []
+    if init_centers is not None and len(init_centers):
+        init_center_data = _init_center_data(init_centers)
+        init_assignments, init_distances = engine.assign_device(
+            prep, np.stack(init_center_data), metric)
+        n_init = len(init_center_data)
+        # the min-distance frame of each init cluster is its center's
+        # index; an init center that owns no frames has none
+        init_ctr_inds = util.find_cluster_centers(init_assignments,
+                                                  init_distances)
+        _reject_ownerless(init_ctr_inds, n_init, init_assignments)
+
+    res = engine.kcenters_device_fused(
+        prep, n_clusters=n_clusters, dist_cutoff=dist_cutoff,
+        init_distances=init_distances, init_assignments=init_assignments,
+        n_init_centers=n_init, init_center_indices=init_ctr_inds)
+
     ctr_inds = list(res.center_indices)
-    return ClusterResult(center_indices=ctr_inds,
-                         assignments=res.assignments,
-                         distances=res.distances,
-                         centers=gather_frames(xyz, ctr_inds))
+    centers = list(init_center_data) + \
+        util.gather_frames(X, ctr_inds[n_init:])
+    logger.info('Terminated k-centers with n=%s and d=%0.6f',
+                res.n_found, res.distances.max(initial=0.0))
+    return util.ClusterResult(center_indices=ctr_inds,
+                              assignments=res.assignments,
+                              distances=res.distances, centers=centers)
+
+
+def _kcenters_host(traj, distance_method, n_clusters, dist_cutoff,
+                   init_centers):
+    """Host loop for callable metrics, with the reference's semantics:
+    first-max argmax, strict-``<`` update."""
+    n_clusters = np.inf if n_clusters is None else n_clusters
+    dist_cutoff = 0 if dist_cutoff is None else dist_cutoff
+
+    if init_centers is None:
+        ctr_inds = []
+        centers = []
+        assignments = np.full(len(traj), -1, dtype=int)
+        distances = np.full(len(traj), np.inf, dtype=float)
+    else:
+        centers = [c for c in init_centers]
+        assignments, distances = util.assign_to_nearest_center(
+            traj, centers, distance_method)
+        ctr_inds = list(util.find_cluster_centers(assignments, distances))
+        _reject_ownerless(ctr_inds, len(centers), assignments)
+
+    while (len(ctr_inds) < n_clusters) and (distances.max() > dist_cutoff):
+        new_center_index = int(np.argmax(distances))
+        ctr_inds.append(new_center_index)
+        new_center = traj[new_center_index]
+        dist = np.asarray(distance_method(traj, new_center)).reshape(-1)
+        inds = dist < distances
+        distances[inds] = dist[inds]
+        assignments[inds] = len(ctr_inds) - 1
+        centers.append(new_center)
+
+    return util.ClusterResult(center_indices=ctr_inds,
+                              assignments=assignments,
+                              distances=distances, centers=centers)

@@ -1,9 +1,11 @@
-"""Carry k-centers state between the JAX package and this one.
+"""Carry kernel inputs and state between the JAX package and this one.
 
 The two share the frame layout (``(3*A_pad, n_pad)`` float32, rows
 ``i*A_pad + a``, frame axis minor) and the state layout of the chunk
 kernel, so a JAX ``PreparedRMSDFrames`` and the arguments and results
-of ``kcenters_chunk_skip_pallas`` cross as numpy arrays.
+of ``kcenters_chunk_skip_pallas`` cross as numpy arrays. The arguments
+of the all-pairs TPU kernel (``qcp_pallas._call_pallas``) cross to the
+inputs of ``ops.qcp_matrix``.
 """
 
 import numpy as np
@@ -13,7 +15,8 @@ from .cluster.engine import TILE, PreparedRMSDFrames
 from .ops.kcenters_step import make_state
 from .util.device import resolve_device
 
-__all__ = ['prepared_from_numpy', 'state_from_numpy', 'result_to_numpy']
+__all__ = ['prepared_from_numpy', 'state_from_numpy', 'result_to_numpy',
+           'qcp_inputs_from_pallas']
 
 
 def prepared_from_numpy(frames_r, g, n, n_atoms, tile=TILE, device=None):
@@ -63,3 +66,20 @@ def result_to_numpy(state, ctr, skipcnt):
             np.full((1, 1), gidx, np.int32),
             np.full((1, 1), md, np.float32),
             state.tmax.cpu().numpy(), skipcnt.cpu().numpy().reshape(-1, 1))
+
+
+def qcp_inputs_from_pallas(frames_t, centers_t, g_f, g_c):
+    """The inputs of ``ops.qcp_matrix.qcp_rmsd_matrix_block`` as numpy
+    arrays, from the arguments of the JAX ``_call_pallas``: ``(3, F_pad,
+    N_pad)`` frames and centers become the ``(3*N_pad, F_pad)`` and
+    ``(3*N_pad, C_pad)`` layout (row ``i*N_pad + a``), the ``(F_pad,
+    1)``/``(C_pad, 1)`` G columns ``(F_pad,)``/``(C_pad,)`` vectors.
+    Padding is carried over as it is."""
+    def layout(t):
+        t = np.asarray(t, np.float32)
+        return np.ascontiguousarray(
+            t.transpose(0, 2, 1).reshape(3 * t.shape[2], t.shape[1]))
+
+    def column(g):
+        return np.ascontiguousarray(np.asarray(g, np.float32).reshape(-1))
+    return layout(frames_t), column(g_f), layout(centers_t), column(g_c)

@@ -1,11 +1,12 @@
 """Build and load the package's CUDA kernels.
 
-Each kernel is one ``csrc/<name>.cu`` with a plain C interface. At first
-use it is compiled with ``nvcc`` for Hopper (``sm_90a``) into a shared
-library under the package's ``build/`` directory and loaded with
+Each kernel is one ``csrc/<name>.cu`` with a plain C interface; the
+``csrc/*.cuh`` headers hold device code the kernels share. At first use
+a kernel is compiled with ``nvcc`` for Hopper (``sm_90a``) into a
+shared library under the package's ``build/`` directory and loaded with
 ``ctypes``; pointers and the stream pass as ``ctypes.c_void_p``. The
-library's file name carries a hash of the source and the flags, so an
-edited source is rebuilt and an unchanged one is reused.
+library's file name carries a hash of the source, the headers and the
+flags, so an edited source is rebuilt and an unchanged one is reused.
 
 There is no fallback: without ``nvcc`` or on a failed build this
 raises, and the caller's CUDA path fails with it.
@@ -13,13 +14,14 @@ raises, and the caller's CUDA path fails with it.
 
 import ctypes
 import functools
+import glob
 import hashlib
 import os
 import shutil
 import subprocess
 import tempfile
 
-__all__ = ['NVCC_FLAGS', 'find_nvcc', 'load_library']
+__all__ = ['NVCC_FLAGS', 'build', 'find_nvcc', 'load_library']
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, 'csrc')
@@ -47,32 +49,59 @@ def find_nvcc():
         'on PATH' % candidate)
 
 
+def _lib_path(name):
+    src = os.path.join(CSRC_DIR, name + '.cu')
+    digest = hashlib.sha256(' '.join(NVCC_FLAGS).encode())
+    for path in [src] + sorted(glob.glob(os.path.join(CSRC_DIR, '*.cuh'))):
+        with open(path, 'rb') as fh:
+            digest.update(fh.read())
+    return src, os.path.join(BUILD_DIR, 'lib%s-%s.so'
+                             % (name, digest.hexdigest()[:16]))
+
+
+def build(*names):
+    """Compile every ``csrc/<name>.cu`` whose library is missing, one
+    ``nvcc`` per source, all started together. Raises ``RuntimeError``
+    when ``nvcc`` is missing or a build fails."""
+    todo = [(src, lib) for src, lib in map(_lib_path, names)
+            if not os.path.exists(lib)]
+    if not todo:
+        return
+    nvcc = find_nvcc()
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    jobs = []
+    try:
+        for src, lib in todo:
+            # build to a private name, then rename: concurrent builders
+            # of the same source never load a half-written library
+            fd, tmp = tempfile.mkstemp(suffix='.so', dir=BUILD_DIR)
+            os.close(fd)
+            jobs.append((src, lib, tmp, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, '-o', tmp, src], stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True)))
+        failed = []
+        for src, lib, tmp, proc in jobs:
+            _, err = proc.communicate()
+            if proc.returncode != 0:
+                failed.append('nvcc failed to build %s (exit %d):\n%s'
+                              % (src, proc.returncode, err[-4000:]))
+            else:
+                os.replace(tmp, lib)
+        if failed:
+            raise RuntimeError('\n'.join(failed))
+    finally:
+        for _, _, tmp, proc in jobs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+
+
 @functools.lru_cache(maxsize=None)
 def load_library(name):
     """Compile ``csrc/<name>.cu`` if needed and return the loaded
     ``ctypes.CDLL``. Raises ``RuntimeError`` when ``nvcc`` is missing
     or the build fails."""
-    src = os.path.join(CSRC_DIR, name + '.cu')
-    with open(src, 'rb') as fh:
-        digest = hashlib.sha256(fh.read() + ' '.join(NVCC_FLAGS).encode())
-    lib_path = os.path.join(BUILD_DIR, 'lib%s-%s.so'
-                            % (name, digest.hexdigest()[:16]))
-    if not os.path.exists(lib_path):
-        nvcc = find_nvcc()
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        # build to a private name, then rename: concurrent builders of
-        # the same source never load a half-written library
-        fd, tmp = tempfile.mkstemp(suffix='.so', dir=BUILD_DIR)
-        os.close(fd)
-        try:
-            proc = subprocess.run([nvcc, *NVCC_FLAGS, '-o', tmp, src],
-                                  capture_output=True, text=True)
-            if proc.returncode != 0:
-                raise RuntimeError('nvcc failed to build %s (exit %d):\n%s'
-                                   % (src, proc.returncode,
-                                      proc.stderr[-4000:]))
-            os.replace(tmp, lib_path)
-        finally:
-            if os.path.exists(tmp):
-                os.unlink(tmp)
-    return ctypes.CDLL(lib_path)
+    build(name)
+    return ctypes.CDLL(_lib_path(name)[1])

@@ -1,4 +1,4 @@
-"""Device helpers (counterpart of ``enspara_tpu/util/backend.py``).
+"""Device helpers: where a function of the port runs.
 
 The port has no "cuda else cpu" default: a function runs where its
 input tensor lies, or on the device its caller names. Host (numpy)

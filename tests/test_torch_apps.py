@@ -1,0 +1,211 @@
+"""The port's ``cluster`` and ``reassign`` CLIs held against the JAX
+package's on the same trajectory files.
+
+Fixtures are written to ``tmp_path`` with ``enspara_tpu.io.write_pdb``
+and ``write_xtc``: metastable-basin frames of 2 atoms per residue, of
+which ``--atoms 'name CA'`` selects one. Both packages run under
+``ENSPARA_TPU_PLATFORM=cpu`` (JAX pins the CPU, the port takes its
+plain kernel versions) and read the same files, so they cluster the
+same numbers. Outputs are loaded with ``enspara_tpu.ra.load``:
+assignments, center indices and center structures are equal;
+distances are held on the msd bar of test_torch_port.py.
+"""
+
+import os
+import pickle
+
+import numpy as np
+import pytest
+
+from enspara_tpu import ra
+from enspara_tpu.apps import cluster as jax_cluster
+from enspara_tpu.apps import reassign as jax_reassign
+from enspara_tpu.exception import ImproperlyConfigured
+from enspara_tpu.io import Topology, Trajectory, write_pdb, write_xtc
+
+from enspara_tpu_torch.apps import cluster, reassign
+
+from test_torch_port import assert_rmsd_close, basin_data
+
+N_TRJ, N_FRAMES, N_RES = 3, 90, 11
+
+
+def write_fixture(d, seed=0, lengths=(N_FRAMES,) * N_TRJ):
+    """XTC trajectories of ``lengths`` frames and a PDB topology under
+    ``d``; returns ``(topology path, trajectory paths, CA
+    coordinates)``."""
+    rng = np.random.default_rng(seed)
+    X = basin_data(rng, sum(lengths), 2 * N_RES, n_basins=12,
+                   dwell=16) + 2.0
+    top = Topology()
+    chain = top.add_chain()
+    for i in range(N_RES):
+        res = top.add_residue('ALA', chain, i + 1)
+        top.add_atom('CA', 'C', res)
+        top.add_atom('CB', 'C', res)
+    pdb = str(d / 'top.pdb')
+    write_pdb(pdb, Trajectory(X[:1], top))
+    trjs = []
+    for t, lo in enumerate(np.cumsum((0,) + tuple(lengths))[:-1]):
+        trjs.append(str(d / ('trj%d.xtc' % t)))
+        write_xtc(trjs[-1], Trajectory(X[lo:lo + lengths[t]], top))
+    return pdb, trjs, X[:, ::2]
+
+
+@pytest.fixture
+def cpu_env(monkeypatch):
+    monkeypatch.setenv('ENSPARA_TPU_PLATFORM', 'cpu')
+    monkeypatch.setenv('ENSPARA_TPU_CACHE_DIR', '0')
+
+
+def _outputs(d, tag):
+    return {k: str(d / ('%s_%s' % (tag, v))) for k, v in (
+        ('--distances', 'dist.h5'), ('--assignments', 'assig.h5'),
+        ('--center-features', 'centers.pkl'),
+        ('--center-indices', 'inds.npy'))}
+
+
+def _cluster_argv(pdb, trjs, out, algorithm, subsample):
+    argv = ['cluster', '--trajectories', *trjs, '--topology', pdb,
+            '--atoms', 'name CA', '--algorithm', algorithm,
+            '--cluster-number', '7', '--subsample', str(subsample),
+            '--random-state', '3']
+    if algorithm != 'kcenters':
+        argv += ['--cluster-iterations', '2']
+    for k, v in out.items():
+        argv += [k, v]
+    return argv
+
+
+def _load(path):
+    """An ``.h5`` output as ``(flat values, row lengths)``."""
+    arr = ra.load(path)
+    if isinstance(arr, ra.RaggedArray):
+        return arr._data, list(arr.lengths)
+    arr = np.asarray(arr)
+    return arr.reshape(-1), [arr.shape[1]] * arr.shape[0]
+
+
+def _assert_same_outputs(port, ref, X):
+    gsum = 2 * float(((X - X.mean(1, keepdims=True)) ** 2)
+                     .sum((1, 2)).max())
+    (pa, pl), (ra_, rl) = (_load(o['--assignments']) for o in (port, ref))
+    assert pl == rl
+    np.testing.assert_array_equal(pa, ra_)
+    assert_rmsd_close(_load(port['--distances'])[0],
+                      _load(ref['--distances'])[0], gsum, N_RES)
+    if '--center-indices' in port:
+        np.testing.assert_array_equal(np.load(port['--center-indices']),
+                                      np.load(ref['--center-indices']))
+    if '--center-features' in port:
+        with open(port['--center-features'], 'rb') as f:
+            pc = pickle.load(f)
+        with open(ref['--center-features'], 'rb') as f:
+            rc = pickle.load(f)
+        assert len(pc) == len(rc) == 7
+        for a, b in zip(pc, rc):
+            np.testing.assert_array_equal(a.xyz, b.xyz)
+
+
+@pytest.mark.parametrize('subsample', [1, 3])
+@pytest.mark.parametrize('algorithm', ['kcenters', 'khybrid', 'kmedoids'])
+def test_cluster_cli_matches_jax(tmp_path, cpu_env, algorithm, subsample):
+    pdb, trjs, X = write_fixture(tmp_path)
+    ref, port = _outputs(tmp_path, 'jax'), _outputs(tmp_path, 'port')
+    assert jax_cluster.main(_cluster_argv(pdb, trjs, ref, algorithm,
+                                          subsample)) == 0
+    assert cluster.main(_cluster_argv(pdb, trjs, port, algorithm,
+                                      subsample)) == 0
+    _assert_same_outputs(port, ref, X)
+    assig = ra.load(port['--assignments'])
+    assert np.asarray(assig).shape == (N_TRJ, N_FRAMES)
+
+
+@pytest.mark.parametrize('lengths', [(N_FRAMES,) * N_TRJ, (70, 90, 33)],
+                         ids=['uniform', 'ragged'])
+def test_reassign_cli_matches_jax(tmp_path, cpu_env, lengths):
+    pdb, trjs, X = write_fixture(tmp_path, seed=1, lengths=lengths)
+    first = _outputs(tmp_path, 'first')
+    assert cluster.main(_cluster_argv(pdb, trjs, first, 'khybrid', 4)) == 0
+    outs = {}
+    for tag, app in (('jax', jax_reassign), ('port', reassign)):
+        outs[tag] = {'--distances': str(tmp_path / (tag + '_rd.h5')),
+                     '--assignments': str(tmp_path / (tag + '_ra.h5'))}
+        argv = ['reassign', '--centers', first['--center-features'],
+                '--trajectories', *trjs, '--topology', pdb,
+                '--atoms', 'name CA']
+        for k, v in outs[tag].items():
+            argv += [k, v]
+        assert app.main(argv) == 0
+    _assert_same_outputs(outs['port'], outs['jax'], X)
+    # the cluster app's own reassignment of the subsampled run
+    _assert_same_outputs(outs['port'], {
+        '--assignments': first['--assignments'],
+        '--distances': first['--distances']}, X)
+    assert _load(outs['port']['--assignments'])[1] == list(lengths)
+
+
+@pytest.mark.parametrize('flag,step', [
+    (['--precision', 'bf16'], 'step 3'),
+    (['--locality-sort'], 'step 3'),
+    (['--checkpoint', 'ckpt'], 'step 5b'),
+], ids=['bf16', 'locality_sort', 'checkpoint'])
+def test_cluster_cli_unported_options_raise(tmp_path, cpu_env, flag, step):
+    pdb, trjs, _ = write_fixture(tmp_path)
+    argv = _cluster_argv(pdb, trjs, _outputs(tmp_path, 'x'), 'kcenters', 1)
+    with pytest.raises(ImproperlyConfigured, match=step):
+        cluster.process_command_line(argv + flag)
+
+
+def test_cluster_cli_features_and_multihost_raise(tmp_path, cpu_env,
+                                                  monkeypatch):
+    out = _outputs(tmp_path, 'x')
+    argv = ['cluster', '--features', str(tmp_path / 'f.h5'),
+            '--algorithm', 'kcenters', '--cluster-number', '3',
+            '--cluster-distance', 'euclidean']
+    for k, v in out.items():
+        argv += [k, v]
+    with pytest.raises(ImproperlyConfigured, match='step 5b'):
+        cluster.process_command_line(argv)
+    monkeypatch.setenv('ENSPARA_TPU_COORDINATOR', 'localhost:1234')
+    with pytest.raises(ImproperlyConfigured, match='step 11'):
+        cluster.main(argv)
+
+
+def test_loaders_build_the_xtc_codec_before_their_threads(tmp_path,
+                                                          monkeypatch):
+    """On a checkout where the native XTC codec is not built yet, the
+    port's loaders build it on the calling thread before the loader
+    threads start: threads that race to build it load a half-written
+    library, and the process loses the codec (seen on the card machine
+    with 8 writer threads)."""
+    import shutil
+    import threading
+
+    import enspara_tpu.native as native
+    from enspara_tpu.io import xtc
+    from enspara_tpu_torch.cluster import util
+
+    pdb, trjs, X = write_fixture(tmp_path)
+    fresh = tmp_path / 'native'
+    fresh.mkdir()
+    for name in ('xdr.cpp', 'Makefile'):
+        shutil.copy(os.path.join(native._NATIVE_DIR, name), fresh)
+    monkeypatch.setattr(native, '_NATIVE_DIR', str(fresh))
+    monkeypatch.setattr(xtc, '_lib', None)
+    monkeypatch.setattr(xtc, '_checked', False)
+    builders = []
+    real = native.load_library
+
+    def recording(name):
+        if not (fresh / ('lib%s.so' % name)).exists():
+            builders.append(threading.current_thread())
+        return real(name)
+    monkeypatch.setattr(native, 'load_library', recording)
+    monkeypatch.setattr(xtc, 'load_library', recording)
+
+    lengths, xyz, _ = util.load_trajectories(
+        [pdb], [trjs], ['name CA'], stride=1, processes=8)
+    assert builders == [threading.main_thread()]
+    assert lengths == [N_FRAMES] * N_TRJ
+    np.testing.assert_allclose(xyz, X, atol=1e-3)

@@ -223,8 +223,9 @@ def test_functional_kcenters_matches_jax():
 
 
 def test_unported_options_raise():
+    """The feature metrics are still to port (ROADMAP queue 1 step 5b);
+    ``init_centers`` is ported (tests/test_torch_assign.py)."""
     X = np.zeros((10, 3, 3), np.float32)
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        kcenters(X, 'rmsd', n_clusters=2, init_centers=[X[0]])
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        kcenters(X, 'euclidean', n_clusters=2)
+    for metric in ('euclidean', 'manhattan', 'hamming'):
+        with pytest.raises(NotImplementedError, match='ROADMAP.*5b'):
+            kcenters(X, metric, n_clusters=2)

@@ -1,6 +1,7 @@
 """enspara_tpu_torch tests that need no JAX: the import boundary, the
 kernel build and its input guards, and (marked ``cuda``, skipped
-without a card) the CUDA kernel against its plain version.
+without a card) the CUDA kernels against their plain versions and the
+card's clustering paths against the same on the CPU.
 
 This file imports no jax, so on a machine without it the card tests run
 with ``python -m pytest --noconftest -m cuda tests/test_torch_port.py``.
@@ -19,7 +20,8 @@ from enspara_tpu_torch.cluster import engine
 from enspara_tpu_torch.convert import result_to_numpy
 from enspara_tpu_torch.msm import (assigns_to_counts_device,
                                    transpose_timescales_device)
-from enspara_tpu_torch.ops import _build, kcenters_step
+from enspara_tpu_torch.cluster import engine_kmedoids, hybrid_device
+from enspara_tpu_torch.ops import _build, kcenters_step, qcp_matrix
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -72,17 +74,27 @@ def _state(prep, n_total, cutoff=0.0):
 
 
 def test_main_path_imports_no_jax():
-    """The port's main path leaves jax out of the process and takes only
-    exception, ra and citation from the JAX package. A subprocess,
-    because the test session itself has imported jax."""
+    """The port's paths leave jax, sklearn and psutil out of the process
+    and take from the JAX package only exception, ra, citation, the
+    host-only io (with the native XTC codec it loads) and util.load,
+    util.parallel and util.log. A subprocess, because the test session
+    itself has imported jax."""
     code = (
         'import sys\n'
         'import enspara_tpu_torch.cluster.engine, enspara_tpu_torch.cluster\n'
         'import enspara_tpu_torch.msm, enspara_tpu_torch.convert\n'
         'import enspara_tpu_torch.util.device\n'
-        'assert "jax" not in sys.modules\n'
+        'import enspara_tpu_torch.apps.cluster\n'
+        'import enspara_tpu_torch.apps.reassign\n'
+        'import enspara_tpu_torch.cluster.kmedoids\n'
+        'import enspara_tpu_torch.cluster.hybrid\n'
+        'for name in ("jax", "sklearn", "psutil"):\n'
+        '    assert name not in sys.modules, name\n'
+        'ok = ("exception", "ra", "citation", "io", "native")\n'
+        'ok_util = ("enspara_tpu.util", "enspara_tpu.util.load",\n'
+        '           "enspara_tpu.util.parallel", "enspara_tpu.util.log")\n'
         'bad = [m for m in sys.modules if m.startswith("enspara_tpu.")\n'
-        '       and m.split(".")[1] not in ("exception", "ra", "citation")]\n'
+        '       and m.split(".")[1] not in ok and m not in ok_util]\n'
         'assert not bad, bad\n')
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, '-c', code], cwd=REPO, env=env,
@@ -207,3 +219,98 @@ def test_cuda_pipeline_matches_cpu(cuda):
     np.testing.assert_array_equal(cg, cc)
     np.testing.assert_allclose(wg, wc, atol=1e-4)
     np.testing.assert_allclose(vg[:, 0], vc[:, 0], atol=1e-5)
+
+
+def _centered(rng, n, a):
+    X = rng.normal(size=(n, a, 3)).astype(np.float32)
+    return X - X.mean(axis=1, keepdims=True)
+
+
+@pytest.mark.cuda
+def test_cuda_qcp_matrix_matches_plain(cuda):
+    """The all-pairs kernel against its plain version on the card, at a
+    padding shape, a proposal block, a multi-block assignment and a
+    single center: every entry within the msd bar, block argmins equal,
+    one launch each."""
+    for F, C, A in ((1000, 37, 61), (4096, 64, 64), (8192, 300, 16),
+                    (256, 1, 3)):
+        rng = np.random.default_rng(F + C)
+        X = _centered(rng, F, A)
+        Y = X[rng.integers(0, F, C)] + 0.01 * _centered(rng, C, A)
+        Y -= Y.mean(axis=1, keepdims=True)
+        a_pad = -(-A // 8) * 8
+        fr, gf = qcp_matrix.to_layout(torch.from_numpy(X).to(cuda),
+                                      qcp_matrix.pad_frames(F), a_pad)
+        cr, gc = qcp_matrix.to_layout(torch.from_numpy(Y).to(cuda),
+                                      qcp_matrix.pad_centers(C), a_pad)
+        before = qcp_matrix.qcp_rmsd_matrix_kernel.n_launches
+        k = qcp_matrix.qcp_rmsd_matrix_block(fr, gf, cr, gc, A)
+        torch.cuda.synchronize()
+        assert qcp_matrix.qcp_rmsd_matrix_kernel.n_launches == before + 1
+        p = qcp_matrix.qcp_rmsd_matrix_plain(fr, gf, cr, gc, A)
+        k, p = k.cpu().numpy(), p.cpu().numpy()
+        assert np.isfinite(k).all()
+        assert_rmsd_close(k, p, 2 * float(max(gf.max(), gc.max())), A)
+        np.testing.assert_array_equal(k[:F, :C].argmin(1),
+                                      p[:F, :C].argmin(1))
+
+
+@pytest.mark.cuda
+def test_cuda_cluster_path_matches_cpu(cuda, monkeypatch):
+    """assign_device and the PAM sweeps on the card against the same on
+    the CPU, fed the same random bits (the kernel launches on the card
+    only); hybrid_device runs both kernels; and on CUDA tensors the S
+    components come only from the kernel: the plain block, einsum and
+    matmul are never called there."""
+    X = basin_data(np.random.default_rng(6), 5000, 16, n_basins=60)
+    g = 2 * float(((X - X.mean(1, keepdims=True)) ** 2).sum((1, 2)).max())
+    centers = X[::50]
+    n0 = qcp_matrix.qcp_rmsd_matrix_kernel.n_launches
+    a_c, d_c = engine.assign_device(X, centers)
+    assert qcp_matrix.qcp_rmsd_matrix_kernel.n_launches == n0
+    a_g, d_g = engine.assign_device(X, centers, device=cuda)
+    assert qcp_matrix.qcp_rmsd_matrix_kernel.n_launches == n0 + 1
+    np.testing.assert_array_equal(a_g, a_c)
+    assert_rmsd_close(d_g, d_c, g, 16)
+
+    res = engine.kcenters_device_fused(X, n_clusters=70)
+    out = {}
+    for dev in ('cpu', cuda):
+        prep = engine.prepare_rmsd_frames(X, device=dev)
+        n_pad = prep.frames_r.shape[1]
+        gen = torch.Generator().manual_seed(1)
+        bits = [torch.randint(0, 2 ** 32, (n_pad,), generator=gen,
+                              dtype=torch.long) for _ in range(2)]
+        d1 = torch.full((n_pad,), float('inf'))
+        d1[:5000] = torch.from_numpy(res.distances.astype(np.float32))
+        a1 = torch.full((n_pad,), -1, dtype=torch.int32)
+        a1[:5000] = torch.from_numpy(res.assignments.astype(np.int32))
+        n0 = qcp_matrix.qcp_rmsd_matrix_kernel.n_launches
+        d, a, m = engine_kmedoids._pam_sweeps(
+            prep, d1.to(dev), a1.to(dev), res.center_indices, bits, 640)
+        out[str(dev)] = (d.cpu().numpy()[:5000], a.cpu().numpy()[:5000],
+                         m.cpu().numpy(),
+                         qcp_matrix.qcp_rmsd_matrix_kernel.n_launches - n0)
+    (dc, ac, mc, lc), (dg, ag, mg, lg) = out.values()
+    assert lc == 0 and lg > 0
+    np.testing.assert_array_equal(mg, mc)
+    np.testing.assert_array_equal(ag, ac)
+    assert_rmsd_close(dg, dc, g, 16)
+    assert not np.array_equal(mc, res.center_indices)
+
+    def refuse(*a, **k):
+        raise AssertionError('plain S computation on the CUDA path')
+    for mod, name in ((qcp_matrix, 'qcp_rmsd_matrix_plain'),
+                      (torch, 'einsum'), (torch, 'matmul')):
+        monkeypatch.setattr(mod, name, refuse)
+    q0 = qcp_matrix.qcp_rmsd_matrix_kernel.n_launches
+    k0 = kcenters_step.kcenters_chunk.n_launches
+    hy = hybrid_device(X, n_clusters=70, n_iters=2, device=cuda)
+    engine_kmedoids.kmedoids_sweeps_device(
+        X, 'rmsd', res.assignments, res.distances, res.center_indices,
+        n_sweeps=1, device=cuda)
+    torch.cuda.synchronize()
+    assert kcenters_step.kcenters_chunk.n_launches > k0
+    assert qcp_matrix.qcp_rmsd_matrix_kernel.n_launches > q0 + 2
+    assert (hy.distances ** 2).mean() <= (res.distances ** 2).mean()
+    assert len(set(hy.center_indices)) == 70
