@@ -5,8 +5,9 @@ Run from the root of a checkout, with one CUDA card visible:
 
     python3 chip_smoke.py
 
-It builds both kernels (csrc/kcenters_step.cu and csrc/qcp_matrix.cu,
-one nvcc each, in parallel) from the checkout and drives two paths:
+It builds the three kernels (csrc/kcenters_step.cu, csrc/qcp_matrix.cu
+and csrc/ell_spmm.cu, one nvcc each, in parallel) from the checkout and
+drives three paths:
 
 1-3. the k-centers kernel against its plain PyTorch version on the
      card, and the north-star pipeline at full size through the port's
@@ -24,15 +25,31 @@ one nvcc each, in parallel) from the checkout and drives two paths:
      1000 --subsample 10 --random-state 0 (k-centers, then 5 PAM sweeps
      on the QCP kernel), then every one of the 1M frames reassigned to the centers
      (the reassign app, on the QCP kernel). The two .h5 writes of the
-     apps (enspara_tpu.ra.save) are left out: they need h5py.
+     apps (ra.save) are left out: they need h5py;
+6.   the ELL SpMM kernel against its plain version, bit for bit, at the
+     shapes its path gives it (the bucketed ELL of the 100,000-state
+     scale point's S with 64 and 128 columns, and an odd 1,000 x 5 x 21
+     shape), timed beside torch.sparse.mm of the same CSR matrix;
+7.   the large-MSM eigensolve through the port's entry points: the
+     scale point of benchmarks/scale_points.py (100,000 states,
+     sparse_metastable_counts with 25 wells, seed 11) through
+     builders.transpose and eigenspectrum_reversible(method='auto'),
+     which takes the filtered solver on the card, checked against host
+     ARPACK (eigenvalues within 1e-10, residuals below 1e-9, pi within
+     1e-9); then implied_timescales_device at lags 1, 2, 4 on host KMC
+     assignments over 20,000 states, each lag's eigenvalues within 1e-10
+     of host ARPACK.
 
-Every time printed was taken on the card, warm where it says so, and
-stands beside the card's name and power limit. Any failed check raises
+Every time printed was taken on the card's machine (device stages timed
+with CUDA events or to a synchronize, host stages on its host), warm
+where it says so, and stands beside the card's name and power limit. Any failed check raises
 and the exit code is not 0. Without a CUDA device it fails before
 printing a result.
 
-Standard output ends with a JSON line per kernel, the nvidia-smi line,
-and the result line {"ok": true, "device": {...}}.
+Standard output ends with a JSON line of the kernels (each with its
+launches on its path, its time, its plain version's, its bound at the
+data sheet's rates and, for the ELL SpMM, torch.sparse.mm's), the
+nvidia-smi line, and the result line {"ok": true, "device": {...}}.
 """
 
 import importlib
@@ -44,18 +61,23 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
+import scipy.sparse
+import scipy.sparse.linalg
 import torch
-
-from enspara_tpu.io import Topology, Trajectory, write_pdb, write_xtc
 
 from enspara_tpu_torch.apps import cluster as cluster_app
 from enspara_tpu_torch.apps import reassign as reassign_app
 from enspara_tpu_torch.cluster import engine, engine_kmedoids
 from enspara_tpu_torch.cluster import util as cluster_util
 from enspara_tpu_torch.convert import result_to_numpy
-from enspara_tpu_torch.msm import (assigns_to_counts_device,
+from enspara_tpu_torch.io import Topology, Trajectory, write_pdb, write_xtc
+from enspara_tpu_torch.msm import (assigns_to_counts_device, builders,
+                                   eigen_device, eigenspectrum_reversible,
+                                   implied_timescales_device,
+                                   sparse_metastable_counts,
                                    transpose_timescales_device)
 from enspara_tpu_torch.ops import _build
+from enspara_tpu_torch.ops.ell_spmm import ell_spmm_kernel, ell_spmm_plain
 from enspara_tpu_torch.ops.kcenters_step import (KCentersState,
                                                  kcenters_chunk,
                                                  kcenters_chunk_plain,
@@ -78,6 +100,21 @@ QCP_REPLACES = 'enspara_tpu/ops/qcp_pallas.py:111'
 QCP_SHAPES = ((1_048_576, 256, 64), (131_072, 64, 64), (1000, 37, 61))
 # phase 5: trajectories x frames each, atoms, centers, subsample
 N_TRJ, TRJ_FRAMES, CLUSTER_K, SUBSAMPLE = 100, 10_000, 1000, 10
+ELL_SOURCE = 'enspara_tpu_torch/csrc/ell_spmm.cu'
+ELL_REPLACES = 'enspara_tpu/ops/spmm_pallas.py:125'
+# phases 6-7: the scale point of benchmarks/scale_points.py (states,
+# wells, seed, modes), the block widths of phase 6, an odd ELL shape
+# (n, w, k), and the implied-timescales run: wells x states each, extra
+# links between consecutive wells and their counts (so that chains
+# cross), KMC chains x steps, lags
+SCALE_STATES, SCALE_BLOCKS, SCALE_SEED, SCALE_EIGS = 100_000, 25, 11, 21
+ELL_WIDTHS = (64, 128)
+ODD_ELL = (1000, 5, 21)
+ITS_WELLS, ITS_WELL_STATES, ITS_LINKS, ITS_LINK_COUNTS = 25, 1000, 20, 2.0
+ITS_CHAINS, ITS_STEPS, ITS_LAGS, ITS_TIMES = 200, 20_000, (1, 2, 4), 20
+# one H100 SXM at 700 W (NVIDIA's data sheet): HBM bytes/s, fp32 flop/s
+# outside the tensor cores
+HBM_RATE, FP32_RATE = 3.35e12, 67e12
 
 
 def check(ok, what):
@@ -366,12 +403,14 @@ def write_trajectories(d):
 
 
 class Stage:
-    """Wrap ``module.name`` for one run: device-synchronised wall time,
-    the kernel launches made inside it and its result."""
+    """Wrap ``module.name`` for one run: device-synchronised wall time
+    and the kernel launches made inside it, summed over its calls, and
+    its last result."""
 
     def __init__(self, module, name):
         self.module, self.name = module, name
         self.fn = getattr(module, name)
+        self.seconds, self.calls, self.qcp, self.kc = 0.0, 0, 0, 0
 
     def __enter__(self):
         def wrapped(*a, **kw):
@@ -381,9 +420,10 @@ class Stage:
             t = time.perf_counter()
             self.result = self.fn(*a, **kw)
             torch.cuda.synchronize()
-            self.seconds = time.perf_counter() - t
-            self.qcp = qcp_matrix.qcp_rmsd_matrix_kernel.n_launches - q0
-            self.kc = kcenters_chunk.n_launches - k0
+            self.seconds += time.perf_counter() - t
+            self.calls += 1
+            self.qcp += qcp_matrix.qcp_rmsd_matrix_kernel.n_launches - q0
+            self.kc += kcenters_chunk.n_launches - k0
             return self.result
         setattr(self.module, self.name, wrapped)
         return self
@@ -414,8 +454,7 @@ def reassign_path(device, card):
         for k, v in out.items():
             argv += [k, v]
 
-        qcp_matrix.qcp_rmsd_matrix_kernel.n_launches = 0
-        kcenters_chunk.n_launches = 0
+        reset_launches()
         engine_kmedoids._pam_sweeps.n_host_syncs = 0
         # the sequence of apps/cluster.py :: main, but for its .h5 write
         args = cluster_app.process_command_line(argv)
@@ -447,6 +486,8 @@ def reassign_path(device, card):
         t_reassign = time.perf_counter() - t
         launches = {'qcp_matrix': qcp_matrix.qcp_rmsd_matrix_kernel.n_launches,
                     'kcenters_step': kcenters_chunk.n_launches}
+        check(ell_spmm_kernel.n_launches == 0,
+              'cluster -> reassign launched the ell_spmm kernel')
 
         # -- checks --
         n_sub = sum(lengths)
@@ -504,17 +545,293 @@ def reassign_path(device, card):
     return launches
 
 
+def bound(n_bytes, n_ops):
+    """``(bound_ms, bound_by)``: the least time the card could take for
+    work that moves ``n_bytes`` and does ``n_ops`` fp32 operations, the
+    larger of the two times at the data sheet's rates."""
+    t_bytes, t_ops = n_bytes / HBM_RATE, n_ops / FP32_RATE
+    return (1e3 * max(t_bytes, t_ops),
+            'bytes' if t_bytes >= t_ops else 'operations')
+
+
+def reps_ms(fn, reps):
+    """Device time of one call of ``fn`` in ms: CUDA events around
+    ``reps`` calls."""
+    return events_ms(lambda: [fn() for _ in range(reps)])[0] / reps
+
+
+def reset_launches():
+    kcenters_chunk.n_launches = 0
+    qcp_matrix.qcp_rmsd_matrix_kernel.n_launches = 0
+    ell_spmm_kernel.n_launches = 0
+
+
+def scale_point():
+    """The 100,000-state scale point (benchmarks/scale_points.py): the
+    counts of sparse_metastable_counts, ``(T, pi)`` by the port's
+    transpose builder, and the symmetrized ``S = D^1/2 T D^-1/2`` built
+    here with scipy for the oracles."""
+    C = sparse_metastable_counts(SCALE_STATES, n_blocks=SCALE_BLOCKS,
+                                 seed=SCALE_SEED)
+    _, T, pi = builders.transpose(C)
+    T, pi = scipy.sparse.csr_matrix(T), np.asarray(pi)
+    return T, pi, symmetrized(T, pi)
+
+
+def symmetrized(T, pi):
+    sq = np.sqrt(pi)
+    S = scipy.sparse.diags(sq) @ T @ scipy.sparse.diags(1.0 / sq)
+    return ((S + S.T) * 0.5).tocsr().astype(np.float64)
+
+
+def oracle_eigs(S, k):
+    """Top-``k`` eigenvalues of S by host ARPACK, descending."""
+    w = scipy.sparse.linalg.eigsh(S, k=k, which='LA',
+                                  return_eigenvectors=False)
+    return np.sort(w)[::-1]
+
+
+def ell_shape(device, cols_h, vals_h, k, seed, what):
+    """Kernel 6 against its plain version on the card at one shape:
+    ``Y`` equal bit for bit (shift 0 and shift 0.25), the launch counter
+    grown by the launches made; then timed in turns plain, kernel,
+    kernel, plain, beside ``torch.sparse.mm`` of the same matrix in CSR
+    form (held to 2 w eps32 (|A| @ |X|)). Returns a dict of the
+    numbers and a line."""
+    n, w = cols_h.shape
+    cols = torch.as_tensor(cols_h, device=device)
+    vals = torch.as_tensor(vals_h, device=device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    X = torch.randn((n, k), generator=gen, device=device)
+    n0 = ell_spmm_kernel.n_launches
+    Yk = ell_spmm_kernel(cols, vals, X)
+    Yk2 = ell_spmm_kernel(cols, vals, X, shift=0.25)
+    torch.cuda.synchronize()
+    check(ell_spmm_kernel.n_launches == n0 + 2,
+          'ell_spmm launch count did not grow by 2')
+    Yp = ell_spmm_plain(cols, vals, X)
+    check(bool(torch.isfinite(Yk).all()), '%s: non-finite values' % what)
+    check(torch.equal(Yk, Yp), '%s: kernel differs from plain' % what)
+    check(torch.equal(Yk2, ell_spmm_plain(cols, vals, X, shift=0.25)),
+          '%s: kernel differs from plain with a shift' % what)
+    max_abs_err = float((Yk - Yp).abs().max())
+
+    # copies: eliminate_zeros compacts the arrays it was given in place
+    csr = scipy.sparse.csr_matrix(
+        (vals_h.ravel().copy(), cols_h.ravel().copy(),
+         np.arange(0, n * w + 1, w)), shape=(n, n))
+    csr.eliminate_zeros()
+    csr.sort_indices()
+    A = torch.sparse_csr_tensor(
+        torch.as_tensor(csr.indptr.astype(np.int64)),
+        torch.as_tensor(csr.indices.astype(np.int64)),
+        torch.as_tensor(csr.data), size=(n, n),
+        check_invariants=True).to(device)
+    Yl = torch.sparse.mm(A, X)
+    bar = 2 * w * np.finfo(np.float32).eps * torch.sparse.mm(
+        torch.sparse_csr_tensor(A.crow_indices(), A.col_indices(),
+                                A.values().abs(), size=(n, n)), X.abs())
+    check(bool(((Yl - Yp).abs() <= bar).all()),
+          '%s: torch.sparse.mm outside 2 w eps32 (|A| @ |X|)' % what)
+    del Yk, Yk2, Yp, Yl, bar
+
+    fns = {'kernel': lambda: ell_spmm_kernel(cols, vals, X),
+           'plain': lambda: ell_spmm_plain(cols, vals, X),
+           'library': lambda: torch.sparse.mm(A, X)}
+    reps = {'kernel': 50, 'plain': 5, 'library': 50}
+    for fn in fns.values():
+        fn()                                       # warm-up
+    n1 = ell_spmm_kernel.n_launches
+    times = [reps_ms(fns[name], reps[name])
+             for name in ('plain', 'kernel', 'kernel', 'plain')]
+    lib_ms = reps_ms(fns['library'], reps['library'])
+    check(ell_spmm_kernel.n_launches == n1 + 2 * reps['kernel'],
+          'ell_spmm launch count did not grow by the launches made')
+    ms, plain_ms = min(times[1:3]), min(times[0], times[3])
+    bound_ms, bound_by = bound(4 * (2 * n * w + 2 * n * k),
+                               2 * csr.nnz * k)
+    line = ('%s: n %d, w %d, k %d, nnz %d: kernel equal to plain bit for '
+            'bit (shift 0 and 0.25); ms per product kernel %.4f, plain '
+            '%.4f, torch.sparse.mm %.4f, bound %.4f (%s) (turns plain, '
+            'kernel, kernel, plain: %s)'
+            % (what, n, w, k, csr.nnz, ms, plain_ms, lib_ms, bound_ms,
+               bound_by, ', '.join('%.4f' % t for t in times)))
+    return {'max_abs_err': max_abs_err, 'ms': ms, 'plain_ms': plain_ms,
+            'bound_ms': bound_ms, 'bound_by': bound_by,
+            'library_ms': lib_ms}, line
+
+
+def eigensolve_path(T, pi, S, card):
+    """Phase 7a: the scale point through eigenspectrum_reversible with
+    method 'auto' and no device named, with its checks against host
+    ARPACK. Returns the kernel-6 launches of the solve."""
+    reset_launches()
+    t = time.perf_counter()
+    vals, vecs, info = eigenspectrum_reversible(
+        T, pi=pi, n_eigs=SCALE_EIGS, method='auto', return_info=True)
+    t_solve = time.perf_counter() - t
+    launches = ell_spmm_kernel.n_launches
+    check(kcenters_chunk.n_launches == 0 and
+          qcp_matrix.qcp_rmsd_matrix_kernel.n_launches == 0,
+          'the eigensolve launched a clustering kernel')
+    check(info['method'] == 'filtered', 'auto took %r' % info['method'])
+    check(not info['fallback'], 'the filtered solve fell back')
+    check(launches > 0, 'the filtered solve launched no ell_spmm kernel')
+    res = float(np.max(info['residuals']))
+    check(res < 1e-9, 'max residual %g' % res)
+    t = time.perf_counter()
+    w_ref = oracle_eigs(S, SCALE_EIGS)
+    t_oracle = time.perf_counter() - t
+    eig_err = float(np.abs(vals - w_ref).max())
+    pi_err = float(np.abs(vecs[:, 0] - pi).max())
+    check(eig_err < 1e-10, 'eigenvalues differ from ARPACK by %g' % eig_err)
+    check(pi_err < 1e-9, 'vecs[:, 0] differs from pi by %g' % pi_err)
+    # a warm solve with stage 1 broken down: the host ELL build, the
+    # device sweeps (each ends in a host read of its Ritz values)
+    with Stage(eigen_device, 'bucketed_ell') as ell_build, \
+            Stage(eigen_device, '_filter_sweep') as sweeps:
+        t = time.perf_counter()
+        info_w = eigenspectrum_reversible(T, pi=pi, n_eigs=SCALE_EIGS,
+                                          method='auto', return_info=True)[2]
+        t_warm = time.perf_counter() - t
+    print('scale point: %d states, %d nonzeros, top %d modes by %r: max '
+          'residual %.3g, eigenvalues within %.3g of host ARPACK, vecs[:, 0]'
+          ' within %.3g of pi; %d ell_spmm launches'
+          % (T.shape[0], T.nnz, SCALE_EIGS, info['method'], res, eig_err,
+             pi_err, launches))
+    print('[%s] solve %.4f s (stage 1 on the card %.3f s: %d sweeps, block '
+          '%d, grown %d, ELL %d x %d; stage 2 on the host %.3f s: %d '
+          'sweeps); host ARPACK oracle %.4f s'
+          % (card, t_solve, info['stage1_s'], info['stage1_sweeps'],
+             info['stage1_block'], info['stage1_grown'],
+             info['stage1_n_padded'], info['stage1_w_padded'],
+             info['stage2_s'], info['refine_sweeps'], t_oracle))
+    print('[%s] warm solve %.4f s: stage 1 %.3f s, of which host ELL build '
+          '%.4f s and %d device sweeps %.4f s (the rest: symmetrizing S, the '
+          'random start block, uploads); stage 2 %.3f s'
+          % (card, t_warm, info_w['stage1_s'], ell_build.seconds,
+             sweeps.calls, sweeps.seconds, info_w['stage2_s']), flush=True)
+    return launches
+
+
+def kmc_assignments(T, rng):
+    """ITS_CHAINS kinetic Monte Carlo chains of ITS_STEPS states over the
+    sparse row-stochastic T, vectorised over the chains on the host, an
+    equal share started in each well."""
+    T = T.tocsr()
+    cum = np.cumsum(T.data)
+    before = np.concatenate([[0.0], cum])[T.indptr[:-1]]
+    total = cum[T.indptr[1:] - 1] - before
+    well = np.arange(ITS_CHAINS) % ITS_WELLS
+    s = well * ITS_WELL_STATES + rng.integers(0, ITS_WELL_STATES,
+                                              ITS_CHAINS)
+    out = np.empty((ITS_CHAINS, ITS_STEPS), np.int64)
+    out[:, 0] = s
+    for t in range(1, ITS_STEPS):
+        idx = np.searchsorted(cum, before[s] + rng.random(ITS_CHAINS)
+                              * total[s], side='right')
+        s = T.indices[np.minimum(idx, T.indptr[s + 1] - 1)]
+        out[:, t] = s
+    return out
+
+
+def its_counts(rng):
+    """The counts behind phase 7b's KMC: sparse_metastable_counts of
+    ITS_WELLS wells, plus ITS_LINKS links of ITS_LINK_COUNTS counts
+    between each pair of consecutive wells, so that the chains cross
+    wells in ITS_STEPS steps and the slowest ITS_WELLS modes stand apart
+    from each well's bulk."""
+    n = ITS_WELLS * ITS_WELL_STATES
+    C = sparse_metastable_counts(n, n_blocks=ITS_WELLS, seed=SCALE_SEED)
+    b = np.repeat(np.arange(ITS_WELLS - 1), ITS_LINKS)
+    src = b * ITS_WELL_STATES + rng.integers(0, ITS_WELL_STATES, b.size)
+    dst = (b + 1) * ITS_WELL_STATES + rng.integers(0, ITS_WELL_STATES,
+                                                   b.size)
+    links = scipy.sparse.coo_matrix(
+        (np.full(b.size, ITS_LINK_COUNTS), (src, dst)), shape=(n, n))
+    return (C + links + links.T).tocsr()
+
+
+def its_path(card):
+    """Phase 7b: implied_timescales_device with the transpose builder at
+    ITS_LAGS on KMC assignments, every lag on the filtered solver; each
+    lag's eigenvalues held to host ARPACK of the same S. Returns the
+    kernel-6 launches of the run."""
+    n = ITS_WELLS * ITS_WELL_STATES
+    rng = np.random.default_rng(SCALE_SEED)
+    _, T, _ = builders.transpose(its_counts(rng))
+    t = time.perf_counter()
+    assigns = kmc_assignments(scipy.sparse.csr_matrix(T), rng)
+    t_kmc = time.perf_counter() - t
+    n_seen = np.unique(assigns).size
+    check(n_seen == n and n > 4096, '%d of %d states visited' % (n_seen, n))
+
+    calls = []
+    real = eigen_device.eigenspectrum_reversible
+
+    def recording(T, pi=None, **kw):
+        k0 = ell_spmm_kernel.n_launches
+        vals, vecs, info = real(T, pi=pi, return_info=True, **kw)
+        calls.append((T, pi, vals, info, ell_spmm_kernel.n_launches - k0))
+        return vals, vecs
+
+    reset_launches()
+    eigen_device.eigenspectrum_reversible = recording
+    try:
+        t = time.perf_counter()
+        ts = implied_timescales_device(assigns, ITS_LAGS, builders.transpose,
+                                       n_times=ITS_TIMES)
+        t_its = time.perf_counter() - t
+    finally:
+        eigen_device.eigenspectrum_reversible = real
+    launches = ell_spmm_kernel.n_launches
+    check(ts.shape == (len(ITS_LAGS), ITS_TIMES), 'timescales %s'
+          % (ts.shape,))
+    check(len(calls) == len(ITS_LAGS), '%d reversible solves for %d lags'
+          % (len(calls), len(ITS_LAGS)))
+    errs = []
+    for lag, (T_l, pi_l, vals, info, k) in zip(ITS_LAGS, calls):
+        check(info['method'] == 'filtered' and not info['fallback'],
+              'lag %d: %r, fallback %r' % (lag, info['method'],
+                                           info['fallback']))
+        check(k > 0, 'lag %d launched no ell_spmm kernel' % lag)
+        check(float(np.max(info['residuals'])) < 1e-9,
+              'lag %d: residual %g' % (lag, np.max(info['residuals'])))
+        w_ref = oracle_eigs(symmetrized(scipy.sparse.csr_matrix(T_l),
+                                        np.asarray(pi_l)), ITS_TIMES + 1)
+        errs.append(float(np.abs(vals - w_ref).max()))
+        check(errs[-1] < 1e-10, 'lag %d: eigenvalues differ from ARPACK '
+              'by %g' % (lag, errs[-1]))
+    n_unit = [int(np.sum(np.abs(c[2] - 1.0) < 1e-12)) for c in calls]
+    print('implied timescales: %d chains x %d steps over %d states (%d '
+          'wells), lags %s by %s, fallback %s: eigenvalues within %s of '
+          'host ARPACK; eigenvalues within 1e-12 of 1 per lag %s; slowest '
+          'timescale per lag %s; ell_spmm launches per lag %s'
+          % (ITS_CHAINS, ITS_STEPS, n, ITS_WELLS, list(ITS_LAGS),
+             [c[3]['method'] for c in calls],
+             [c[3]['fallback'] for c in calls],
+             ', '.join('%.3g' % e for e in errs), n_unit,
+             ', '.join('%.6g' % x for x in ts[:, 0]),
+             [c[4] for c in calls]))
+    print('[%s] KMC %.3f s (host); implied_timescales_device %.4f s for %d '
+          'lags (stage 1 %s s, stage 2 %s s)'
+          % (card, t_kmc, t_its, len(ITS_LAGS),
+             [c[3]['stage1_s'] for c in calls],
+             [c[3]['stage2_s'] for c in calls]), flush=True)
+    return launches
+
+
 def main():
     card = card_line()
     print('card:', card, flush=True)
     device = require_cuda()
     torch.backends.cuda.matmul.allow_tf32 = False
     t = time.perf_counter()
-    _build.build('kcenters_step', 'qcp_matrix')
-    _build.load_library('kcenters_step')
-    _build.load_library('qcp_matrix')
-    print('built %s and %s in %.3f s (nvcc %s)'
-          % (SOURCE, QCP_SOURCE, time.perf_counter() - t,
+    _build.build('kcenters_step', 'qcp_matrix', 'ell_spmm')
+    for name in ('kcenters_step', 'qcp_matrix', 'ell_spmm'):
+        _build.load_library(name)
+    print('built %s, %s and %s in %.3f s (nvcc %s)'
+          % (SOURCE, QCP_SOURCE, ELL_SOURCE, time.perf_counter() - t,
              ' '.join(_build.NVCC_FLAGS)), flush=True)
 
     # -- 1. kernel against plain version on basin data ---------------------
@@ -548,13 +865,13 @@ def main():
     # -- 2. main path at full size ----------------------------------------
     frames = random_walk(device)
     pipeline(frames, device)                      # warm-up
-    kcenters_chunk.n_launches = 0
-    qcp_matrix.qcp_rmsd_matrix_kernel.n_launches = 0
+    reset_launches()
     prep, res, counts, vals, vecs, (t_prep, t_cl, t_co, t_eig) = \
         pipeline(frames, device)
     launches = kcenters_chunk.n_launches
-    check(qcp_matrix.qcp_rmsd_matrix_kernel.n_launches == 0,
-          'the north star launched the qcp kernel')
+    check(qcp_matrix.qcp_rmsd_matrix_kernel.n_launches == 0 and
+          ell_spmm_kernel.n_launches == 0,
+          'the north star launched the qcp or ell_spmm kernel')
     check(res.n_found == N_CLUSTERS, 'n_found %d' % res.n_found)
     check(int(res.assignments.max()) == N_CLUSTERS - 1,
           'assignments.max() %d' % res.assignments.max())
@@ -600,12 +917,19 @@ def main():
                          TIMED_ITERS, '%d x %d x %d kernel vs plain'
                          % (N_FRAMES, N_ATOMS, TIMED_ITERS)))
     ms, plain_ms = min(times['kernel']), min(times['plain'])
-    print('[%s] per iteration at %d x %d: kernel %.4f ms, plain %.4f ms '
-          '(turns plain, kernel, kernel, plain: %s); one-iteration '
-          'max |kernel - plain| %.3g'
-          % (card, N_FRAMES, N_ATOMS, ms, plain_ms,
-             ', '.join('%.4f' % t for t in times['plain'][:1]
-                       + times['kernel'] + times['plain'][1:]),
+    # per iteration: the frames of the tiles not skipped, G, and dist and
+    # assig read and written; 9 * A_pad fp32 FMAs per frame
+    rows, n_pad = prep.frames_r.shape
+    skc = outs['kernel'][6]
+    visited = 1.0 - skc[skc > 0].sum() / (TIMED_ITERS * (n_pad // prep.tile))
+    kc_bound = bound(4 * (rows * n_pad * visited + 5 * n_pad),
+                     2 * 3 * rows * n_pad)
+    print('[%s] per iteration at %d x %d: kernel %.4f ms, plain %.4f ms, '
+          'bound %.4f ms (%s) (turns plain, kernel, kernel, plain: %s); '
+          'one-iteration max |kernel - plain| %.3g'
+          % (card, N_FRAMES, N_ATOMS, ms, plain_ms, kc_bound[0],
+             kc_bound[1], ', '.join('%.4f' % t for t in times['plain'][:1]
+                                    + times['kernel'] + times['plain'][1:]),
              max_abs_err), flush=True)
 
     del frames, prep, res, counts, start, outs
@@ -618,21 +942,60 @@ def main():
         print('[%s] %s' % (card, line), flush=True)
         if i == 0:
             qcp_err, qcp_ms, qcp_plain_ms = err, k_ms, p_ms
+            # frames, centers and their G read once, the block written
+            # once; 9 * A_pad fp32 FMAs per pair
+            fp, cp, ap = (qcp_matrix.pad_frames(F), qcp_matrix.pad_centers(C),
+                          -(-A // 8) * 8)
+            qcp_bound = bound(4 * (3 * ap * (fp + cp) + fp + cp + fp * cp),
+                              2 * 9 * ap * fp * cp)
+            print('[%s] bound of the %d x %d x %d block: %.4f ms (%s)'
+                  % ((card, F, C, A) + qcp_bound), flush=True)
         torch.cuda.empty_cache()
 
     # -- 5. cluster -> reassign through the apps at full size --------------
     path = reassign_path(device, card)
+
+    # -- 6. the ELL SpMM kernel and its plain version ----------------------
+    T, pi, S = scale_point()
+    cols_h, vals_h = eigen_device.bucketed_ell(S)
+    ell = None
+    for i, k in enumerate(ELL_WIDTHS):
+        nums, line = ell_shape(device, cols_h, vals_h, k, seed=i,
+                               what='scale-point S')
+        print('[%s] %s' % (card, line), flush=True)
+        ell = ell or nums
+    n, w, k = ODD_ELL
+    rng = np.random.default_rng(5)
+    # w distinct columns a row, sorted: a valid CSR for torch.sparse.mm
+    odd_cols = np.sort(np.argsort(rng.random((n, n)), axis=1)[:, :w], axis=1)
+    _, line = ell_shape(device, odd_cols.astype(np.int32),
+                        rng.normal(size=(n, w)).astype(np.float32), k,
+                        seed=9, what='odd shape')
+    print('[%s] %s' % (card, line), flush=True)
+    torch.cuda.empty_cache()
+
+    # -- 7. the large-MSM eigensolve and implied timescales ----------------
+    ell_launches = eigensolve_path(T, pi, S, card)
+    its_launches = its_path(card)
     print('launches: north star kcenters_step %d; cluster -> reassign '
-          'kcenters_step %d, qcp_matrix %d'
-          % (launches, path['kcenters_step'], path['qcp_matrix']))
+          'kcenters_step %d, qcp_matrix %d; scale-point eigensolve ell_spmm '
+          '%d; implied timescales ell_spmm %d'
+          % (launches, path['kcenters_step'], path['qcp_matrix'],
+             ell_launches, its_launches))
 
     print(json.dumps({'kernels': [{
         'name': 'kcenters_step', 'route': 'cuda', 'source': SOURCE,
         'replaces': REPLACES, 'launches': launches,
-        'max_abs_err': max_abs_err, 'ms': ms, 'plain_ms': plain_ms}, {
+        'max_abs_err': max_abs_err, 'ms': ms, 'plain_ms': plain_ms,
+        'bound_ms': kc_bound[0], 'bound_by': kc_bound[1],
+        'library_ms': None}, {
         'name': 'qcp_matrix', 'route': 'cuda', 'source': QCP_SOURCE,
         'replaces': QCP_REPLACES, 'launches': path['qcp_matrix'],
-        'max_abs_err': qcp_err, 'ms': qcp_ms, 'plain_ms': qcp_plain_ms}]}))
+        'max_abs_err': qcp_err, 'ms': qcp_ms, 'plain_ms': qcp_plain_ms,
+        'bound_ms': qcp_bound[0], 'bound_by': qcp_bound[1],
+        'library_ms': None}, {
+        'name': 'ell_spmm', 'route': 'cuda', 'source': ELL_SOURCE,
+        'replaces': ELL_REPLACES, 'launches': ell_launches, **ell}]}))
     print(card)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -20,8 +20,8 @@ import sys
 
 import numpy as np
 
-from enspara_tpu import exception, ra
-from enspara_tpu.util.log import timed
+from .. import exception, ra
+from ..util.log import timed
 
 from ..cluster import KCenters, KHybrid, KMedoids, util
 from ..util.backend import select_device

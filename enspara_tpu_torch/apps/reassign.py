@@ -15,10 +15,10 @@ import os
 import pickle
 import sys
 
-from enspara_tpu import exception, ra
-from enspara_tpu.util.load import concatenate_trjs
-from enspara_tpu.util.log import timed
-from enspara_tpu.util.parallel import auto_nprocs
+from .. import exception, ra
+from ..util.load import concatenate_trjs
+from ..util.log import timed
+from ..util.parallel import auto_nprocs
 
 from ..cluster.util import reassign
 from ..util.backend import select_device

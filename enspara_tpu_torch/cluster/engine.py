@@ -64,7 +64,8 @@ class PreparedRMSDFrames(NamedTuple):
 
 def prepare_rmsd_frames(X, tile=TILE, device=None):
     """Ingest ``(n, n_atoms, 3)`` coordinates (numpy or a tensor) into
-    the k-centers layout on ``device`` (default: where ``X`` lies).
+    the k-centers layout on ``device`` (default: where a tensor ``X``
+    lies, the card for host data).
     Frames are centered here; ``A_pad`` is the atom count rounded up to
     a multiple of 8 and ``n_pad`` the frame count rounded up to a
     multiple of ``tile``."""
@@ -111,7 +112,8 @@ def kcenters_device_fused(X, n_clusters=None, dist_cutoff=None,
 
     ``X`` is a :class:`PreparedRMSDFrames`, which clusters where its
     frames lie, or ``(n, n_atoms, 3)`` coordinates, prepared on
-    ``device`` (default: where ``X`` lies).
+    ``device`` (default: where a tensor ``X`` lies, the card for host
+    data).
     Stops at ``n_clusters`` centers or once the max distance is
     ``<= dist_cutoff``. A warm start passes the previous run's
     ``init_distances``/``init_assignments`` with ``n_init_centers``
@@ -245,7 +247,8 @@ def assign_device(X, centers, metric='rmsd', device=None):
     form of ``assign_to_nearest_center``.
 
     ``X`` is ``(n, n_atoms, 3)`` coordinates (numpy or a tensor),
-    prepared on ``device`` (default: where ``X`` lies), or a
+    prepared on ``device`` (default: where a tensor ``X`` lies, the card
+    for host data), or a
     :class:`PreparedRMSDFrames`; ``centers`` is ``(k, n_atoms, 3)``.
     Frames and centers are centered on the device. Only
     ``metric='rmsd'`` is ported.

@@ -5,8 +5,8 @@ import logging
 
 import numpy as np
 
-from enspara_tpu.citation import cite
-from enspara_tpu.exception import ImproperlyConfigured
+from ..citation import cite
+from ..exception import ImproperlyConfigured
 
 from . import engine, util
 from .engine_kmedoids import kmedoids_sweeps_device

@@ -13,7 +13,7 @@ import logging
 
 import numpy as np
 
-from enspara_tpu.exception import DataInvalid, ImproperlyConfigured
+from ..exception import DataInvalid, ImproperlyConfigured
 
 from . import engine, util
 from .util import run_timed

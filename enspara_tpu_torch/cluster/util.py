@@ -2,11 +2,9 @@
 the results container, nearest-center assignment, metric dispatch, and
 the data loaders, writers and reassignment the CLI apps use.
 
-Trajectory I/O comes from the JAX package's host-only modules
-(``enspara_tpu.io``, ``enspara_tpu.util.load``/``parallel``/``log``,
-``enspara_tpu.ra``), which import no jax. Only metric 'rmsd' and
-callables are ported; the feature metrics and ``--features`` are
-ROADMAP.md queue 1 step 5b.
+Trajectory I/O is the port's own host code (``io``, ``util.load``,
+``ra``). Only metric 'rmsd' and callables are ported; the feature
+metrics and ``--features`` are ROADMAP.md queue 1 step 5b.
 """
 
 import logging
@@ -18,14 +16,15 @@ from collections import namedtuple
 import numpy as np
 import torch
 
-from enspara_tpu import ra
-from enspara_tpu.exception import DataInvalid, ImproperlyConfigured
-from enspara_tpu.ra.ra import partition_indices, partition_list
-from enspara_tpu.util.load import load_as_concatenated, sound_trajectory
-from enspara_tpu.util.log import timed
-from enspara_tpu.util.parallel import auto_nprocs
-
+from .. import io as io_mod
+from .. import native, ra
+from ..exception import DataInvalid, ImproperlyConfigured
 from ..ops.qcp_matrix import pairwise_rmsd
+from ..ra.ra import partition_indices, partition_list
+from ..util.device import resolve_device
+from ..util.load import load_as_concatenated, sound_trajectory
+from ..util.log import timed
+from ..util.parallel import auto_nprocs
 from . import engine
 
 logger = logging.getLogger(__name__)
@@ -124,7 +123,8 @@ def _rmsd_metric(trajectory, center):
     the frames lie (the CUDA kernel for a CUDA tensor)."""
     xyz = trajectory.xyz if hasattr(trajectory, 'xyz') else trajectory
     cxyz = center.xyz if hasattr(center, 'xyz') else center
-    xyz = torch.as_tensor(xyz, dtype=torch.float32)
+    xyz = torch.as_tensor(xyz, dtype=torch.float32,
+                          device=resolve_device(xyz))
     cxyz = torch.as_tensor(cxyz, dtype=torch.float32, device=xyz.device)
     if cxyz.ndim == 3:
         cxyz = cxyz[0]
@@ -211,13 +211,11 @@ def expand_files(pgroups):
 
 
 def load_xtc_codec(paths):
-    """Build and load the native XTC codec on this thread when any of
-    ``paths`` is an ``.xtc`` file. ``enspara_tpu.io.xtc`` builds it
-    lazily at first use; loader threads that race to build it can load
-    a half-written library and lose the codec for the whole process."""
+    """Build the native XTC codec on this thread, before the loader
+    threads start, when any of ``paths`` is an ``.xtc`` file: the
+    threads then load one library instead of each compiling it."""
     if any(str(p).lower().endswith('.xtc') for p in paths):
-        from enspara_tpu.native import load_library
-        load_library('xdr')
+        native.load_library('xdr')
 
 
 def load_trajectories(topologies, trajectories, selections, stride,
@@ -225,8 +223,6 @@ def load_trajectories(topologies, trajectories, selections, stride,
     """Load trajectory sets (one topology + atom selection per set)
     into one concatenated coordinate array. Returns ``(lengths, xyz,
     selected topology)``."""
-    from enspara_tpu import io as io_mod
-
     flat_trjs = []
     configs = []
     n_inds = None
@@ -269,8 +265,6 @@ def load_trajectories(topologies, trajectories, selections, stride,
 def load_trjs_or_features(args):
     """Load the CLI's trajectories: ``(lengths, Trajectory)``. Feature
     inputs are not ported."""
-    from enspara_tpu import io as io_mod
-
     if getattr(args, 'features', None):
         raise ImproperlyConfigured(FEATURES_TODO)
     assert args.trajectories
@@ -284,8 +278,6 @@ def load_trjs_or_features(args):
 def load_frames(filenames, indices, **kwargs):
     """Load specific ``(file_index, frame_index)`` frames, each file
     read once however many of its frames are asked for."""
-    from enspara_tpu import io as io_mod
-
     stride = kwargs.pop('stride', 1) or 1
     out = [None] * len(indices)
     name = traj = None
@@ -308,7 +300,6 @@ def load_asymm_frames(center_indices, trajectories, topology, subsample):
     """Load the center frames ``(trajectory, frame)`` of several
     trajectory sets, each with its own topology."""
     import itertools
-    from enspara_tpu import io as io_mod
 
     frames = []
     begin_index = 0
@@ -434,7 +425,6 @@ def reassign(topologies, trajectories, atoms, centers, frac_mem=0.5,
     batches, on ``device``. Returns ``(assignments, distances)``,
     ndarrays for equal lengths, else RaggedArrays."""
     from concurrent.futures import ThreadPoolExecutor
-    from enspara_tpu import io as io_mod
 
     n_procs = auto_nprocs()
     if len(topologies) != len(trajectories):

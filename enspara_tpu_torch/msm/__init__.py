@@ -1,4 +1,12 @@
-"""Transition counts and the transpose-builder timescales on a device."""
+"""Markov state models: transition counting, the builders, and the
+eigensolves of reversible transition matrices on a device."""
 
-from .eigen_device import transpose_timescales_device  # noqa: F401
-from .transition_matrices import assigns_to_counts_device  # noqa: F401
+from . import builders  # noqa: F401
+from .transition_matrices import (assigns_to_counts, eigenspectrum,  # noqa: F401
+                                  trim_disconnected, eq_probs,
+                                  TrimMapping, assigns_to_counts_device)
+from .eigen_device import (eigenspectrum_reversible,  # noqa: F401
+                           implied_timescales_device,
+                           transpose_timescales_device)
+from .synthetic_data import (synthetic_trajectory,  # noqa: F401
+                             sparse_metastable_counts)

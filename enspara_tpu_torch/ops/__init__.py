@@ -1,1 +1,2 @@
-"""QCP RMSD and the k-centers kernel."""
+"""QCP RMSD, the k-centers and all-pairs RMSD kernels, and the sparse
+operands and ELL SpMM kernel of the eigensolver."""

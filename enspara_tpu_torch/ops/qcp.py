@@ -14,7 +14,7 @@ same operation order as the JAX module. The k-centers kernel
 
 import torch
 
-from enspara_tpu.citation import cite
+from ..citation import cite
 
 __all__ = [
     'center_coordinates', 'qcp_rmsd_matrix', 'qcp_rmsd_vector',

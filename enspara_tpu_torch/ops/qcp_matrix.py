@@ -24,6 +24,7 @@ import functools
 
 import torch
 
+from ..util.device import resolve_device
 from . import _build
 from .qcp import _einsum_fp32, _f32, rmsd_from_S_components_unrolled
 
@@ -190,9 +191,9 @@ def pairwise_rmsd(frames, centers, g_frames=None, g_centers=None,
     """All-pairs minimum RMSD of pre-centered ``frames`` (F, N, 3) to
     pre-centered ``centers`` (C, N, 3); the arguments of
     ``qcp_rmsd_matrix_pallas``. Pads to the contract, runs the block
-    where ``frames`` lies (the CPU for numpy input) and returns (F, C)
-    float32."""
-    frames = _f32(frames)
+    where a tensor ``frames`` lies (the card for host data) and returns
+    (F, C) float32."""
+    frames = _f32(frames).to(resolve_device(frames))
     centers = _f32(centers).to(frames.device)
     F, C = int(frames.shape[0]), int(centers.shape[0])
     a_pad = _round_up(frames.shape[1], 8)

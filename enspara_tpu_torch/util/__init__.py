@@ -1,1 +1,1 @@
-"""Device helpers."""
+"""Device selection, trajectory loading and timing helpers."""

@@ -1,8 +1,11 @@
 """Device helpers: where a function of the port runs.
 
-The port has no "cuda else cpu" default: a function runs where its
-input tensor lies, or on the device its caller names. Host (numpy)
-inputs with no ``device=`` stay on the CPU, where they already are.
+A function runs on the device its caller names (``device=``), else where
+its input tensor lies: a CPU tensor is the caller asking for the CPU.
+Host input (numpy, scipy, lists) with no ``device=`` goes to
+:func:`~enspara_tpu_torch.util.backend.select_device`: the CUDA device,
+unless ``$ENSPARA_TPU_PLATFORM=cpu``. There is no "cuda else cpu":
+without a card that default raises.
 """
 
 import torch
@@ -21,10 +24,12 @@ def require_cuda():
 
 
 def resolve_device(x, device=None):
-    """``device`` when given, else the device ``x`` lies on (the CPU
-    for anything that is not a tensor)."""
+    """``device`` when given, else the device ``x`` lies on when it is a
+    tensor, else :func:`~enspara_tpu_torch.util.backend.select_device`
+    (the card; raises without one unless ``$ENSPARA_TPU_PLATFORM=cpu``)."""
     if device is not None:
         return torch.device(device)
     if isinstance(x, torch.Tensor):
         return x.device
-    return torch.device('cpu')
+    from .backend import select_device
+    return select_device()

@@ -20,12 +20,19 @@ import pytest
 from enspara_tpu import ra
 from enspara_tpu.apps import cluster as jax_cluster
 from enspara_tpu.apps import reassign as jax_reassign
-from enspara_tpu.exception import ImproperlyConfigured
 from enspara_tpu.io import Topology, Trajectory, write_pdb, write_xtc
 
 from enspara_tpu_torch.apps import cluster, reassign
+from enspara_tpu_torch.exception import ImproperlyConfigured
 
 from test_torch_port import assert_rmsd_close, basin_data
+
+
+@pytest.fixture(autouse=True)
+def _cpu_platform(monkeypatch):
+    """Host inputs run on the CPU in these tests: with no device named,
+    the port sends them to the card."""
+    monkeypatch.setenv('ENSPARA_TPU_PLATFORM', 'cpu')
 
 N_TRJ, N_FRAMES, N_RES = 3, 90, 11
 
@@ -54,7 +61,6 @@ def write_fixture(d, seed=0, lengths=(N_FRAMES,) * N_TRJ):
 
 @pytest.fixture
 def cpu_env(monkeypatch):
-    monkeypatch.setenv('ENSPARA_TPU_PLATFORM', 'cpu')
     monkeypatch.setenv('ENSPARA_TPU_CACHE_DIR', '0')
 
 
@@ -172,33 +178,35 @@ def test_cluster_cli_features_and_multihost_raise(tmp_path, cpu_env,
         cluster.main(argv)
 
 
+def _fresh_native(tmp_path, monkeypatch):
+    """The port's native codecs with an empty build directory, as on a
+    fresh checkout, and the XTC binding not yet loaded."""
+    from enspara_tpu_torch import native
+    from enspara_tpu_torch.io import xtc
+
+    monkeypatch.setattr(native, 'BUILD_DIR', str(tmp_path / 'build'))
+    monkeypatch.setattr(xtc, '_lib', None)
+    monkeypatch.setattr(xtc, '_checked', False)
+    return native, xtc
+
+
 def test_loaders_build_the_xtc_codec_before_their_threads(tmp_path,
                                                           monkeypatch):
     """On a checkout where the native XTC codec is not built yet, the
     port's loaders build it on the calling thread before the loader
-    threads start: threads that race to build it load a half-written
-    library, and the process loses the codec (seen on the card machine
-    with 8 writer threads)."""
-    import shutil
+    threads start, so that the threads load one library instead of each
+    compiling it."""
     import threading
 
-    import enspara_tpu.native as native
-    from enspara_tpu.io import xtc
     from enspara_tpu_torch.cluster import util
 
     pdb, trjs, X = write_fixture(tmp_path)
-    fresh = tmp_path / 'native'
-    fresh.mkdir()
-    for name in ('xdr.cpp', 'Makefile'):
-        shutil.copy(os.path.join(native._NATIVE_DIR, name), fresh)
-    monkeypatch.setattr(native, '_NATIVE_DIR', str(fresh))
-    monkeypatch.setattr(xtc, '_lib', None)
-    monkeypatch.setattr(xtc, '_checked', False)
+    native, xtc = _fresh_native(tmp_path, monkeypatch)
     builders = []
     real = native.load_library
 
     def recording(name):
-        if not (fresh / ('lib%s.so' % name)).exists():
+        if not os.path.exists(native.lib_path(name)[1]):
             builders.append(threading.current_thread())
         return real(name)
     monkeypatch.setattr(native, 'load_library', recording)
@@ -209,3 +217,18 @@ def test_loaders_build_the_xtc_codec_before_their_threads(tmp_path,
     assert builders == [threading.main_thread()]
     assert lengths == [N_FRAMES] * N_TRJ
     np.testing.assert_allclose(xyz, X, atol=1e-3)
+
+
+def test_native_build_survives_racing_threads(tmp_path, monkeypatch):
+    """Threads that race to build the codec on a fresh checkout each load
+    a whole library: every build writes a private file and renames it
+    into place, and no temporary file is left behind."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    native, _ = _fresh_native(tmp_path, monkeypatch)
+    with ThreadPoolExecutor(4) as ex:
+        futures = [ex.submit(native.load_library, 'xdr') for _ in range(4)]
+        libs = [f.result(timeout=300) for f in futures]
+    assert all(lib is not None and lib.xtc_scan for lib in libs)
+    assert os.listdir(tmp_path / 'build') == [
+        os.path.basename(native.lib_path('xdr')[1])]

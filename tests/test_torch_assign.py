@@ -21,13 +21,20 @@ from enspara_tpu.cluster import KCenters as JaxKCenters
 from enspara_tpu.cluster import engine as jengine
 from enspara_tpu.cluster import kcenters as jax_kcenters
 from enspara_tpu.cluster import util as jutil
-from enspara_tpu.exception import ImproperlyConfigured
 
 from enspara_tpu_torch.cluster import KCenters, engine, kcenters, util
+from enspara_tpu_torch.exception import ImproperlyConfigured
 from enspara_tpu_torch.ops import qcp_matrix
 from enspara_tpu_torch.util.backend import check_random_state, select_device
 
 from test_torch_port import assert_rmsd_close, basin_data
+
+
+@pytest.fixture(autouse=True)
+def _cpu_platform(monkeypatch):
+    """Host inputs run on the CPU in these tests: with no device named,
+    the port sends them to the card."""
+    monkeypatch.setenv('ENSPARA_TPU_PLATFORM', 'cpu')
 
 
 def _gsum(X):

@@ -35,6 +35,13 @@ from enspara_tpu_torch.ops import kcenters_step
 from test_torch_port import assert_rmsd_close, basin_data, fresh_arrays
 
 
+@pytest.fixture(autouse=True)
+def _cpu_platform(monkeypatch):
+    """Host inputs run on the CPU in these tests: with no device named,
+    the port sends them to the card."""
+    monkeypatch.setenv('ENSPARA_TPU_PLATFORM', 'cpu')
+
+
 def _gsum_max(prep):
     return 2 * float(np.max(np.asarray(prep.g)))
 

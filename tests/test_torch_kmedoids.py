@@ -25,16 +25,23 @@ from enspara_tpu.cluster import kcenters as jax_kcenters
 from enspara_tpu.cluster import kmedoids as jax_kmedoids
 from enspara_tpu.cluster import util as jutil
 from enspara_tpu.cluster.kmedoids import _kmedoids_pam_update as jax_pam
-from enspara_tpu.exception import DataInvalid
 
 from enspara_tpu_torch.cluster import (KHybrid, KMedoids, engine,
                                        engine_kmedoids, hybrid,
                                        hybrid_device, kmedoids, util)
 from enspara_tpu_torch.cluster.kmedoids import (_kmedoids_pam_update, _msq,
                                                 _kmedoids_iterations)
+from enspara_tpu_torch.exception import DataInvalid
 from enspara_tpu_torch.ops import qcp_matrix
 
 from test_torch_port import assert_rmsd_close, basin_data
+
+
+@pytest.fixture(autouse=True)
+def _cpu_platform(monkeypatch):
+    """Host inputs run on the CPU in these tests: with no device named,
+    the port sends them to the card."""
+    monkeypatch.setenv('ENSPARA_TPU_PLATFORM', 'cpu')
 
 
 def _data(seed, n=400, a=9, basins=14):

@@ -6,14 +6,22 @@ import numpy as np
 import pytest
 import torch
 
-from enspara_tpu.exception import DataInvalid
+from enspara_tpu.exception import DataInvalid as JaxDataInvalid
 from enspara_tpu.msm.eigen_device import \
     transpose_timescales_device as jax_tail
 from enspara_tpu.msm.transition_matrices import \
     assigns_to_counts_device as jax_counts
 
+from enspara_tpu_torch.exception import DataInvalid
 from enspara_tpu_torch.msm import (assigns_to_counts_device,
                                    transpose_timescales_device)
+
+
+@pytest.fixture(autouse=True)
+def _cpu_platform(monkeypatch):
+    """Host inputs run on the CPU in these tests: with no device named,
+    the port sends them to the card."""
+    monkeypatch.setenv('ENSPARA_TPU_PLATFORM', 'cpu')
 
 
 def _assigns(rng, n_traj=5, length=300, n_states=7):
@@ -47,10 +55,11 @@ def test_counts_match_jax(case):
 def test_counts_validation_matches_jax():
     a = np.array([[0, 1, 7, 2]])
     mask = np.ones_like(a, dtype=bool)
-    for fn in (jax_counts, assigns_to_counts_device):
-        with pytest.raises(DataInvalid):
+    for fn, error in ((jax_counts, JaxDataInvalid),
+                      (assigns_to_counts_device, DataInvalid)):
+        with pytest.raises(error):
             fn(a, mask, 1, 7)                # state 7 >= n_states
-        with pytest.raises(DataInvalid):
+        with pytest.raises(error):
             fn(a, mask, 0, 8)                # lag must be >= 1
     mask[0, 2] = False                       # out of range but masked out
     np.testing.assert_array_equal(

@@ -26,6 +26,13 @@ from enspara_tpu_torch.ops import _build, kcenters_step, qcp_matrix
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+@pytest.fixture(autouse=True)
+def _cpu_platform(monkeypatch):
+    """Host inputs run on the CPU in these tests: with no device named,
+    the port sends them to the card."""
+    monkeypatch.setenv('ENSPARA_TPU_PLATFORM', 'cpu')
+
+
 def basin_data(rng, n, a, n_basins, noise=0.2, dwell=64):
     """Temporally ordered metastable-basin frames (the generator of
     tests/test_kcenters_skip.py), where tiles become skippable. The
@@ -74,28 +81,22 @@ def _state(prep, n_total, cutoff=0.0):
 
 
 def test_main_path_imports_no_jax():
-    """The port's paths leave jax, sklearn and psutil out of the process
-    and take from the JAX package only exception, ra, citation, the
-    host-only io (with the native XTC codec it loads) and util.load,
-    util.parallel and util.log. A subprocess, because the test session
-    itself has imported jax."""
+    """Importing every module of the port, and what chip_smoke.py
+    imports, brings in neither the JAX package nor jax, sklearn or
+    psutil. A subprocess, because the test session itself has imported
+    them."""
     code = (
-        'import sys\n'
-        'import enspara_tpu_torch.cluster.engine, enspara_tpu_torch.cluster\n'
-        'import enspara_tpu_torch.msm, enspara_tpu_torch.convert\n'
-        'import enspara_tpu_torch.util.device\n'
-        'import enspara_tpu_torch.apps.cluster\n'
-        'import enspara_tpu_torch.apps.reassign\n'
-        'import enspara_tpu_torch.cluster.kmedoids\n'
-        'import enspara_tpu_torch.cluster.hybrid\n'
-        'for name in ("jax", "sklearn", "psutil"):\n'
-        '    assert name not in sys.modules, name\n'
-        'ok = ("exception", "ra", "citation", "io", "native")\n'
-        'ok_util = ("enspara_tpu.util", "enspara_tpu.util.load",\n'
-        '           "enspara_tpu.util.parallel", "enspara_tpu.util.log")\n'
-        'bad = [m for m in sys.modules if m.startswith("enspara_tpu.")\n'
-        '       and m.split(".")[1] not in ok and m not in ok_util]\n'
-        'assert not bad, bad\n')
+        'import importlib, pkgutil, sys\n'
+        'import enspara_tpu_torch\n'
+        'for m in pkgutil.walk_packages(enspara_tpu_torch.__path__,\n'
+        '                               "enspara_tpu_torch."):\n'
+        '    importlib.import_module(m.name)\n'
+        'import chip_smoke\n'
+        'bad = [m for m in sys.modules if m == "enspara_tpu"\n'
+        '       or m.startswith("enspara_tpu.")\n'
+        '       or m.split(".")[0] in ("jax", "sklearn", "psutil")]\n'
+        'assert not bad, bad\n'
+        'assert "enspara_tpu_torch.msm.eigen_device" in sys.modules\n')
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, '-c', code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)

@@ -17,6 +17,13 @@ from enspara_tpu.ops import qcp as jqcp
 from enspara_tpu_torch.ops import qcp
 
 
+@pytest.fixture(autouse=True)
+def _cpu_platform(monkeypatch):
+    """Host inputs run on the CPU in these tests: with no device named,
+    the port sends them to the card."""
+    monkeypatch.setenv('ENSPARA_TPU_PLATFORM', 'cpu')
+
+
 def random_structs(rng, n_structs, n_atoms, scale=1.0):
     return (rng.normal(size=(n_structs, n_atoms, 3)) * scale) \
         .astype(np.float32)

@@ -29,6 +29,13 @@ from enspara_tpu_torch.ops import qcp_matrix
 from test_torch_port import assert_rmsd_close
 
 
+@pytest.fixture(autouse=True)
+def _cpu_platform(monkeypatch):
+    """Host inputs run on the CPU in these tests: with no device named,
+    the port sends them to the card."""
+    monkeypatch.setenv('ENSPARA_TPU_PLATFORM', 'cpu')
+
+
 def _structures(rng, n, a, scale=1.0):
     X = (scale * rng.normal(size=(n, a, 3))).astype(np.float32)
     return X - X.mean(axis=1, keepdims=True)

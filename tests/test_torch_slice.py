@@ -9,6 +9,7 @@ exactly equal, eigenvalues 1e-4, pi 1e-5, eigenvectors 1e-3 up to sign.
 """
 
 import numpy as np
+import pytest
 
 from enspara_tpu.cluster import engine as jengine
 from enspara_tpu.msm.eigen_device import \
@@ -21,6 +22,13 @@ from enspara_tpu_torch.msm import (assigns_to_counts_device,
                                    transpose_timescales_device)
 
 from test_torch_port import assert_rmsd_close
+
+
+@pytest.fixture(autouse=True)
+def _cpu_platform(monkeypatch):
+    """Host inputs run on the CPU in these tests: with no device named,
+    the port sends them to the card."""
+    monkeypatch.setenv('ENSPARA_TPU_PLATFORM', 'cpu')
 
 N, ATOMS, K, LAG, EIGS = 4096, 16, 64, 5, 8
 
