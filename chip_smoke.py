@@ -5,9 +5,9 @@ Run from the root of a checkout, with one CUDA card visible:
 
     python3 chip_smoke.py
 
-It builds the three kernels (csrc/kcenters_step.cu, csrc/qcp_matrix.cu
-and csrc/ell_spmm.cu, one nvcc each, in parallel) from the checkout and
-drives three paths:
+It builds the four kernel sources (csrc/kcenters_step.cu,
+csrc/qcp_update.cu, csrc/qcp_matrix.cu and csrc/ell_spmm.cu, one nvcc
+each, in parallel) from the checkout and drives four paths:
 
 1-3. the k-centers kernel against its plain PyTorch version on the
      card, and the north-star pipeline at full size through the port's
@@ -38,7 +38,20 @@ drives three paths:
      ARPACK (eigenvalues within 1e-10, residuals below 1e-9, pi within
      1e-9); then implied_timescales_device at lags 1, 2, 4 on host KMC
      assignments over 20,000 states, each lag's eigenvalues within 1e-10
-     of host ARPACK.
+     of host ARPACK;
+8.   the two one-iteration kernels of the sharded loop (kernel 3,
+     qcp_update.cu, and kernel 4, kc_iter_skip of kcenters_step.cu)
+     against their plain versions: one 250,112 x 64 shard of phase 9's
+     layout and phase 1's basin data cut into 4 shards, each with the
+     finite md that chose the center (tiles skip) and with md = inf;
+9.   the sharded path through the port's public functions on a 4-shard
+     mesh of the card (FrameMesh((cuda:0,) * 4)): phase 2's 1M x 64
+     frames -> kcenters(..., mesh=) to 1000 centers ->
+     assigns_to_counts_sharded at lag 10 -> transpose_timescales_device
+     -> assign_device(..., mesh=) -> implied_timescales_batched at lags
+     1, 2, 5, 10 with and without the mesh, held against phase 2's
+     single-device run, tri_skip=False (kernel 3) against tri_skip=True
+     (kernel 4) bit for bit, numpy counts and float64 host eigenvalues.
 
 Every time printed was taken on the card's machine (device stages timed
 with CUDA events or to a synchronize, host stages on its host), warm
@@ -67,22 +80,27 @@ import torch
 
 from enspara_tpu_torch.apps import cluster as cluster_app
 from enspara_tpu_torch.apps import reassign as reassign_app
-from enspara_tpu_torch.cluster import engine, engine_kmedoids
+from enspara_tpu_torch.cluster import engine, engine_kmedoids, kcenters
 from enspara_tpu_torch.cluster import util as cluster_util
 from enspara_tpu_torch.convert import result_to_numpy
 from enspara_tpu_torch.io import Topology, Trajectory, write_pdb, write_xtc
-from enspara_tpu_torch.msm import (assigns_to_counts_device, builders,
+from enspara_tpu_torch.msm import (assigns_to_counts_device,
+                                   assigns_to_counts_sharded, builders,
                                    eigen_device, eigenspectrum_reversible,
+                                   implied_timescales_batched,
                                    implied_timescales_device,
                                    sparse_metastable_counts,
                                    transpose_timescales_device)
 from enspara_tpu_torch.ops import _build
 from enspara_tpu_torch.ops.ell_spmm import ell_spmm_kernel, ell_spmm_plain
-from enspara_tpu_torch.ops.kcenters_step import (KCentersState,
-                                                 kcenters_chunk,
-                                                 kcenters_chunk_plain,
-                                                 start_state)
+from enspara_tpu_torch.ops.kcenters_step import (
+    KCentersState, kcenters_chunk, kcenters_chunk_plain,
+    kcenters_iteration_skip, kcenters_iteration_skip_plain, skip_t_pad,
+    start_state, tile_summaries)
 from enspara_tpu_torch.ops import qcp_matrix
+from enspara_tpu_torch.ops.qcp_update import (kcenters_iteration,
+                                              kcenters_iteration_plain)
+from enspara_tpu_torch.parallel import FrameMesh
 from enspara_tpu_torch.ops.qcp import rmsd_from_S_components_unrolled
 from enspara_tpu_torch.util.device import require_cuda
 
@@ -112,6 +130,16 @@ ELL_WIDTHS = (64, 128)
 ODD_ELL = (1000, 5, 21)
 ITS_WELLS, ITS_WELL_STATES, ITS_LINKS, ITS_LINK_COUNTS = 25, 1000, 20, 2.0
 ITS_CHAINS, ITS_STEPS, ITS_LAGS, ITS_TIMES = 200, 20_000, (1, 2, 4), 20
+# phases 8-9: the sharded path's shards, its lags, and the two
+# one-iteration kernels (kernel 3 qcp_update, kernel 4
+# kcenters_iteration_skip) with the TPU kernels they replace
+N_SHARDS, SHARDED_LAGS = 4, (1, 2, 5, 10)
+UPDATE_SOURCE = 'enspara_tpu_torch/csrc/qcp_update.cu'
+UPDATE_REPLACES = 'enspara_tpu/ops/qcp_update_pallas.py:134'
+SKIP_REPLACES = 'enspara_tpu/ops/kcenters_skip_pallas.py:482'
+ITER_TIMED = 50
+# phase 9's profiled window: runs of this many centers and twice as many
+CHUNK_CENTERS = 64
 # one H100 SXM at 700 W (NVIDIA's data sheet): HBM bytes/s, fp32 flop/s
 # outside the tensor cores
 HBM_RATE, FP32_RATE = 3.35e12, 67e12
@@ -564,6 +592,8 @@ def reset_launches():
     kcenters_chunk.n_launches = 0
     qcp_matrix.qcp_rmsd_matrix_kernel.n_launches = 0
     ell_spmm_kernel.n_launches = 0
+    kcenters_iteration.n_launches = 0
+    kcenters_iteration_skip.n_launches = 0
 
 
 def scale_point():
@@ -821,18 +851,429 @@ def its_path(card):
     return launches
 
 
+def queued_ms(fn, reps):
+    """Device time of one call of ``fn`` in ms: CUDA events around
+    ``reps`` calls queued behind a spin of the card, so that the host's
+    launch overhead leaves no gap in the timeline. Only for functions
+    that never wait for the card."""
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(50_000_000)             # ~25 ms of the card's clock
+    t0.record()
+    for _ in range(reps):
+        fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / reps
+
+
+def phase1_data():
+    """Phase 1's basin data: 65,536 frames x 64 atoms, 256 basins, seed
+    0."""
+    return basin_data(np.random.default_rng(0), CHECK_FRAMES, N_ATOMS,
+                      n_basins=256)
+
+
+def one(v, dtype, device):
+    return torch.full((1, 1), v, dtype=dtype, device=device)
+
+
+def iteration_case(sh, state, col, gc, cid, md, bar):
+    """Kernels 3 and 4 against their plain versions, each from a copy of
+    one shard state ``(dist, assig, tmax)``, against the center with
+    column ``col``, G ``gc`` and id ``cid`` chosen at the global max
+    ``md``. Distances on the msd bar; assignments equal but for near
+    ties (one side took the new center, the other kept its own, at
+    distances within the msd bar); each kernel's tmax, (lmax, largmax)
+    and skipcnt exactly what its own output distances and the skip rule
+    give; with md = inf, kernel 3 and kernel 4 bit for bit. Returns the
+    numbers of the case."""
+    cvec = col.view(3, -1).t().contiguous()
+    n_tiles = sh.frames_r.shape[1] // sh.tile
+    out = {}
+    for name, fn in (('k4', kcenters_iteration_skip),
+                     ('p4', kcenters_iteration_skip_plain)):
+        d, a, t = (x.clone() for x in state)
+        out[name] = [x.cpu().numpy() for x in fn(
+            sh.frames_r, sh.g, d, a, t, col, gc, cid, md, sh.n_atoms,
+            tile=sh.tile)]
+    for name, fn in (('k3', kcenters_iteration),
+                     ('p3', kcenters_iteration_plain)):
+        d, a = state[0].clone(), state[1].clone()
+        out[name] = [x.cpu().numpy() for x in fn(
+            sh.frames_r, sh.g, d, a, cvec, gc, cid, sh.n_atoms,
+            tile=sh.tile, with_argmax=True)]
+    cid_h, md_h = int(cid), float(md)
+    flips, errs = 0, []
+    for k, p in (('k4', 'p4'), ('k3', 'p3')):
+        check(rmsd_close(out[k][0], out[p][0], bar),
+              'kernel %s: distances outside the msd bar' % k[1])
+        f = out[k][1] != out[p][1]
+        check(bool(((out[k][1][f] == cid_h) | (out[p][1][f] == cid_h))
+                   .all()), 'kernel %s: assignments differ beyond near '
+              'ties' % k[1])
+        flips += int(f.sum())
+        fin = np.isfinite(out[p][0])
+        errs.append(float(np.abs(out[k][0][fin] - out[p][0][fin]).max()))
+    for k, (lm, la) in (('k4', (3, 4)), ('k3', (2, 3))):
+        dk = out[k][0][0]
+        check(out[k][lm][0, 0] == dk.max() and
+              int(out[k][la][0, 0]) == int(np.argmax(dk)),
+              'kernel %s: (lmax, largmax) differ from its distances' % k[1])
+    check(np.array_equal(out['k4'][2][0, :n_tiles],
+                         out['k4'][0][0].reshape(n_tiles, -1).max(1)),
+          'kernel 4: tmax differs from its distances')
+    tm_in = state[2][0, :n_tiles].cpu().numpy()
+    rule = int(((tm_in <= 0.5 * md_h) & np.isfinite(md_h)).sum())
+    check(int(out['k4'][5][0, 0]) == rule == int(out['p4'][5][0, 0]),
+          'skipcnt %d / plain %d, the rule gives %d'
+          % (out['k4'][5][0, 0], out['p4'][5][0, 0], rule))
+    same = all(np.array_equal(out['k4'][j], out['k3'][k])
+               for j, k in ((0, 0), (1, 1), (3, 2), (4, 3)))
+    check(same or np.isfinite(md_h), 'kernels 3 and 4 differ with md = inf')
+    return {'skipped': rule, 'tiles': n_tiles, 'flips': flips,
+            'same': same, 'err4': errs[0], 'err3': errs[1]}
+
+
+def iteration_kernels(device, X, card):
+    """Phase 8: kernels 3 and 4 against their plain versions at one
+    250,112 x 64 shard of phase 9's layout (from the state 8 plain
+    iterations leave, against this shard's farthest frame) and at phase
+    1's basin data cut into 4 shards (from the state 128 chunk
+    iterations leave, against the next center), each with the finite md
+    that chose the center and with md = inf; then the first timed in
+    turns. Returns the kernels' numbers."""
+    mesh = FrameMesh((device,) * N_SHARDS)
+    prep = engine.prepare_rmsd_frames(X, mesh=mesh)
+    sh, n_local, tile = prep.shards[0], prep.n_local, prep.tile
+    rows = sh.frames_r.shape[0]
+    bar = bar_from(2 * float(sh.g.max()), N_ATOMS)
+    dist = torch.full((1, n_local), float('inf'), device=device)
+    dist[0, sh.n:] = -float('inf')
+    assig = torch.full((1, n_local), -1, dtype=torch.int32, device=device)
+    tmax = tile_summaries(dist, tile, skip_t_pad(n_local // tile))
+
+    def center(k):
+        gi = int(torch.argmax(dist[0]))
+        return (sh.frames_r[:, gi:gi + 1].contiguous(),
+                sh.g[:, gi:gi + 1].contiguous(), one(k, torch.int32, device),
+                one(float(dist[0, gi]), torch.float32, device))
+    for k in range(8):
+        kcenters_iteration_skip_plain(sh.frames_r, sh.g, dist, assig, tmax,
+                                      *center(k), N_ATOMS, tile=tile)
+    col, gc, cid, md = center(8)
+    md_inf = one(float('inf'), torch.float32, device)
+    state = (dist, assig, tmax)
+    n4, n3 = kcenters_iteration_skip.n_launches, kcenters_iteration.n_launches
+    fin = iteration_case(sh, state, col, gc, cid, md, bar)
+    inf = iteration_case(sh, state, col, gc, cid, md_inf, bar)
+    torch.cuda.synchronize()
+    check(kcenters_iteration_skip.n_launches == n4 + 2 and
+          kcenters_iteration.n_launches == n3 + 2,
+          'phase 8 launch counts did not grow by the launches made')
+    print('%d x %d shard, center %d at md %.6g: kernels vs plain within the '
+          'msd bar, near-tie flips %d / %d (md finite / inf), tiles skipped '
+          '%d / %d of %d, kernel 3 == kernel 4 bit for bit: %s / %s; max '
+          '|kernel - plain| kernel 4 %.3g, kernel 3 %.3g'
+          % (n_local, N_ATOMS, int(torch.argmax(dist[0])), float(md),
+             fin['flips'], inf['flips'], fin['skipped'], inf['skipped'],
+             fin['tiles'], fin['same'], inf['same'], inf['err4'],
+             inf['err3']), flush=True)
+
+    # timed at md = inf (every tile read), the full stream of a shard
+    cvec = col.view(3, -1).t().contiguous()
+    work = [x.clone() for x in state]
+    fns = {
+        'k4': lambda: kcenters_iteration_skip(
+            sh.frames_r, sh.g, *work, col, gc, cid, md_inf, N_ATOMS,
+            tile=tile),
+        'p4': lambda: kcenters_iteration_skip_plain(
+            sh.frames_r, sh.g, *work, col, gc, cid, md_inf, N_ATOMS,
+            tile=tile),
+        'k3': lambda: kcenters_iteration(
+            sh.frames_r, sh.g, work[0], work[1], cvec, gc, cid, N_ATOMS,
+            tile=tile, with_argmax=True),
+        'p3': lambda: kcenters_iteration_plain(
+            sh.frames_r, sh.g, work[0], work[1], cvec, gc, cid, N_ATOMS,
+            tile=tile, with_argmax=True)}
+    for fn in fns.values():
+        fn()                                       # warm-up
+    times = {}
+    for k in ('4', '3'):
+        times[k] = [reps_ms(fns['p' + k], 5) if turn == 'plain'
+                    else queued_ms(fns['k' + k], ITER_TIMED)
+                    for turn in ('plain', 'kernel', 'kernel', 'plain')]
+    work = [x.clone() for x in state]
+    ms_fin = queued_ms(lambda: kcenters_iteration_skip(
+        sh.frames_r, sh.g, *work, col, gc, cid, md, N_ATOMS, tile=tile),
+        ITER_TIMED)
+    # per call: the frames, G, and dist and assig read and written; 9
+    # fp32 FMAs per frame and atom row triple
+    it_bound = bound(4 * (rows * n_local + 5 * n_local),
+                     2 * 3 * rows * n_local)
+    nums = {}
+    for k, name in (('4', 'kernel 4'), ('3', 'kernel 3')):
+        t = times[k]
+        nums[k] = {'max_abs_err': inf['err' + k], 'ms': min(t[1:3]),
+                   'plain_ms': min(t[0], t[3]), 'bound_ms': it_bound[0],
+                   'bound_by': it_bound[1], 'library_ms': None}
+        print('[%s] %s per call at %d x %d, md = inf: kernel %.4f ms, plain '
+              '%.4f ms, bound %.4f ms (%s) (turns plain, kernel, kernel, '
+              'plain: %s)' % (card, name, n_local, N_ATOMS, nums[k]['ms'],
+                              nums[k]['plain_ms'], it_bound[0], it_bound[1],
+                              ', '.join('%.4f' % x for x in t)), flush=True)
+    print('[%s] kernel 4 per call at the finite md, %d calls from the same '
+          'state: %.4f ms' % (card, ITER_TIMED, ms_fin), flush=True)
+    del prep, sh, state, work, dist, assig, tmax
+
+    # phase 1's basin data in 4 shards, against the 129th center
+    Xb = phase1_data()
+    prep = engine.prepare_rmsd_frames(Xb, device=device)
+    st = fresh_state(prep)
+    kcenters_chunk(prep, st, CHECK_CENTERS)
+    gidx, md_b, i = st.scalars()
+    bar = msd_bar(prep)
+    col = prep.frames_r[:, gidx:gidx + 1].contiguous()
+    gc = prep.g[:, gidx:gidx + 1].contiguous()
+    n_loc = CHECK_FRAMES // N_SHARDS
+    t_pad = skip_t_pad(n_loc // prep.tile)
+    skipped, flips, tiles = {}, 0, 0
+    for mdv in (md_b, float('inf')):
+        skipped[mdv] = 0
+        for s in range(N_SHARDS):
+            lo, hi = s * n_loc, (s + 1) * n_loc
+            shs = engine.PreparedRMSDFrames(
+                prep.frames_r[:, lo:hi].contiguous(),
+                prep.g[:, lo:hi].contiguous(), n_loc, N_ATOMS, prep.tile)
+            d = st.dist[:, lo:hi].contiguous()
+            c = iteration_case(
+                shs, (d, st.assig[:, lo:hi].contiguous(),
+                      tile_summaries(d, prep.tile, t_pad)),
+                col, gc, one(i, torch.int32, device),
+                one(mdv, torch.float32, device), bar)
+            skipped[mdv] += c['skipped']
+            flips += c['flips']
+            tiles += c['tiles']
+    check(skipped[md_b] > 0 and skipped[float('inf')] == 0,
+          'basin shards: %d tiles skipped at md %r' % (skipped[md_b], md_b))
+    print('%d x %d basin data in %d shards, center %d (the %dth) at md '
+          '%.6g: kernels vs plain within the msd bar in every shard, %d '
+          'near-tie flips; %d of %d tiles skipped at the finite md, 0 at '
+          'md = inf' % (CHECK_FRAMES, N_ATOMS, N_SHARDS, gidx, i + 1, md_b,
+                        flips, skipped[md_b], tiles // 2), flush=True)
+    return nums
+
+
+def loop_profile(X, mesh, card):
+    """Where an iteration of the sharded loop goes on the card: two runs
+    of 64 and 128 centers from the same prepared frames under
+    torch.profiler (CUDA activity), each after a warm-up, and their
+    difference over 64 iterations: the launches and device ms of kernel 4
+    and of everything else (the collectives' torch ops), the wall ms, and
+    the share of it the card is idle."""
+    from torch.profiler import ProfilerActivity, profile
+    prep = engine.prepare_rmsd_frames(X, mesh=mesh)
+    runs = {}
+    for k in (CHUNK_CENTERS, 2 * CHUNK_CENTERS):
+        engine.kcenters_device_fused(prep, n_clusters=k, mesh=mesh)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            engine.kcenters_device_fused(prep, n_clusters=k, mesh=mesh)
+            torch.cuda.synchronize()
+            wall = 1e3 * (time.perf_counter() - t)
+        kern, other = [0, 0.0], [0, 0.0]
+        for e in prof.key_averages():
+            us = getattr(e, 'device_time_total', None)
+            if us is None:
+                us = getattr(e, 'cuda_time_total', 0.0)
+            if us > 0:
+                part = kern if 'kc_iter_skip' in e.key else other
+                part[0] += e.count
+                part[1] += us / 1e3
+        runs[k] = (wall, kern, other)
+    (w1, k1, o1), (w2, k2, o2) = runs.values()
+    per = [(b - a) / CHUNK_CENTERS for a, b in (
+        (w1, w2), (k1[0], k2[0]), (k1[1], k2[1]), (o1[0], o2[0]),
+        (o1[1], o2[1]))]
+    if per[2] <= 0:
+        print('[%s] sharded loop profile: the profiler saw no device time '
+              '(not measured)' % card, flush=True)
+        return
+    print('[%s] sharded loop per iteration (torch.profiler, %d-center '
+          'runs minus %d-center runs): wall %.4f ms; kernel 4 %.2f launches, '
+          '%.4f ms on the card; other ops (the collectives) %.2f launches, '
+          '%.4f ms on the card; card idle %.1f%%'
+          % (card, 2 * CHUNK_CENTERS, CHUNK_CENTERS, per[0], per[1], per[2],
+             per[3], per[4], 100 * (1 - (per[2] + per[4]) / per[0])),
+          flush=True)
+
+
+def sharded_path(device, X, single, t_single, card):
+    """Phase 9: the sharded path through the public entry points on a
+    4-shard mesh of the card, with its checks against phase 2's
+    single-device result ``single`` (cluster seconds ``t_single``).
+    Returns the launches of kernels 3 and 4 on their paths."""
+    mesh = FrameMesh((device,) * N_SHARDS)
+    Xc2 = (X * X).sum(dim=(1, 2))
+    bar = bar_from(2 * float(Xc2.max()), N_ATOMS)
+    del Xc2
+
+    # kernel 3's path: the sharded loop with tri_skip=False (the warm-up)
+    reset_launches()
+    t = time.perf_counter()
+    off = engine.kcenters_device_fused(X, n_clusters=N_CLUSTERS, mesh=mesh,
+                                       tri_skip=False)
+    torch.cuda.synchronize()
+    t_off = time.perf_counter() - t
+    k3_launches = kcenters_iteration.n_launches
+    check(k3_launches > 0 and kcenters_iteration_skip.n_launches == 0,
+          'tri_skip=False: %d kernel 3 and %d kernel 4 launches'
+          % (k3_launches, kcenters_iteration_skip.n_launches))
+
+    # the main path
+    reset_launches()
+    with Stage(engine, 'prepare_rmsd_frames') as prep_st, \
+            Stage(engine, 'kcenters_device_fused') as clu:
+        res = kcenters(X, 'rmsd', n_clusters=N_CLUSTERS, mesh=mesh)
+    a = np.asarray(res.assignments).reshape(100, -1)
+    t = time.perf_counter()
+    counts = assigns_to_counts_sharded(a, np.ones_like(a, bool), LAG,
+                                       N_CLUSTERS, mesh=mesh)
+    torch.cuda.synchronize()
+    t_co = time.perf_counter() - t
+    t = time.perf_counter()
+    _, vals, vecs = transpose_timescales_device(counts, N_EIGS, lag_time=LAG)
+    t_eig = time.perf_counter() - t
+    centers = np.stack(res.centers)
+    with Stage(engine, 'assign_device') as asg:
+        a_m, d_m = engine.assign_device(X, centers, mesh=mesh)
+    t = time.perf_counter()
+    its_m = implied_timescales_batched(a, SHARDED_LAGS, n_times=N_EIGS - 1,
+                                       mesh=mesh)
+    t_its = time.perf_counter() - t
+    k4_launches = kcenters_iteration_skip.n_launches
+    qcp_launches = qcp_matrix.qcp_rmsd_matrix_kernel.n_launches
+    check(k4_launches > 0 and kcenters_iteration.n_launches == 0 and
+          kcenters_chunk.n_launches == 0 and ell_spmm_kernel.n_launches == 0,
+          'sharded path: kernel 4 %d, kernel 3 %d, kernel 1 %d, kernel 6 %d '
+          'launches' % (k4_launches, kcenters_iteration.n_launches,
+                        kcenters_chunk.n_launches,
+                        ell_spmm_kernel.n_launches))
+    check(asg.qcp > 0, 'the sharded assignment launched no qcp kernel')
+
+    # -- checks --
+    ctr = np.asarray(res.center_indices)
+    check(len(ctr) == N_CLUSTERS and clu.result.n_found == N_CLUSTERS and
+          off.n_found == N_CLUSTERS, 'n_found %d' % clu.result.n_found)
+    check(np.array_equal(off.center_indices, ctr) and
+          np.array_equal(off.assignments, res.assignments) and
+          np.array_equal(off.distances, res.distances),
+          'tri_skip=False (kernel 3) differs from tri_skip=True (kernel 4)')
+    diff = np.flatnonzero(ctr != single.center_indices)
+    if len(diff) == 0:
+        check(rmsd_close(res.distances, single.distances, bar),
+              'sharded distances outside the msd bar of phase 2')
+        flips = int((res.assignments != single.assignments).sum())
+        verdict = ('first divergence from phase 2: none; distances within '
+                   'the msd bar, %d near-tie assignment flips' % flips)
+    else:
+        i = int(diff[0])
+        ca, cb = int(ctr[i]), int(single.center_indices[i])
+        before = engine.kcenters_device_fused(X, n_clusters=i, mesh=mesh)
+        da, db = before.distances[ca], before.distances[cb]
+        check(abs(da * da - db * db) <= bar(max(da, db)),
+              'pick %d differs from phase 2 (%d vs %d) without a near tie: '
+              '%r vs %r' % (i, ca, cb, da, db))
+        verdict = ('first divergence from phase 2: pick %d (%d vs %d, '
+                   '%.9g vs %.9g, a near tie)' % (i, ca, cb, da, db))
+    rs, r1 = float(res.distances.max()), float(single.distances.max())
+    check(abs(rs - r1) <= 1e-5 * r1, 'covering radius %r vs phase 2 %r'
+          % (rs, r1))
+    ref_counts = np.bincount(
+        (a[:, :-LAG] * N_CLUSTERS + a[:, LAG:]).ravel(),
+        minlength=N_CLUSTERS ** 2).reshape(N_CLUSTERS, N_CLUSTERS)
+    counts_h = counts.cpu().numpy()
+    check(np.array_equal(counts_h, ref_counts),
+          'sharded counts differ from numpy')
+    w_ref, pi_ref = host_eigs(counts_h)
+    eig_err = float(np.abs(vals - w_ref).max())
+    check(eig_err < 1e-4, 'eigenvalues differ by %g' % eig_err)
+    a_1, d_1 = engine.assign_device(X, centers)
+    check(np.array_equal(a_m, a_1) and np.array_equal(d_m, d_1),
+          'assign_device(mesh=) differs from one device')
+    its_1 = implied_timescales_batched(a, SHARDED_LAGS, n_times=N_EIGS - 1)
+    check(its_m.shape == (len(SHARDED_LAGS), N_EIGS - 1) and
+          np.array_equal(its_m, its_1, equal_nan=True),
+          'batched timescales with the mesh differ from those without')
+    its_err = 0.0
+    for k, lag in enumerate(SHARDED_LAGS):
+        c = assigns_to_counts_device(a, np.ones_like(a, bool), lag,
+                                     N_CLUSTERS, device=device)
+        w = transpose_timescales_device(c, N_EIGS, lag_time=lag)[1][1:]
+        # a NaN timescale stands for an eigenvalue at or below 0
+        nan = np.isnan(its_m[k])
+        check(bool((w[nan] <= 1e-4).all()), 'lag %d: NaN timescales for '
+              'eigenvalues %s' % (lag, w[nan]))
+        its_err = max(its_err, float(np.abs(
+            np.exp(-lag / its_m[k][~nan]) - w[~nan]).max(initial=0.0)))
+    check(its_err < 1e-4, 'batched eigenvalues differ from the per-lag '
+          'solve by %g' % its_err)
+    check(kcenters_chunk.n_launches == 0, 'phase 9 launched kernel 1')
+
+    # phase 1's basin data: tri_skip on and off, with the skipped visits
+    Xb = phase1_data()
+    with Stage(engine, '_kcenters_loop_fused_sharded') as loop:
+        on_b = engine.kcenters_device_fused(Xb, n_clusters=N_CLUSTERS,
+                                            mesh=mesh)
+        skipped = int(loop.result[0].skipped)
+        n_local = loop.result[0].dist[0].shape[1]
+    off_b = engine.kcenters_device_fused(Xb, n_clusters=N_CLUSTERS,
+                                         mesh=mesh, tri_skip=False)
+    check(all(np.array_equal(x, y) for x, y in zip(on_b, off_b)),
+          'basin data: tri_skip on and off differ')
+    check(skipped > 0, 'basin data: no tile visit skipped')
+    visits = on_b.n_found * N_SHARDS * (n_local // engine.TILE)
+    check(kcenters_chunk.n_launches == 0, 'phase 9 launched kernel 1')
+
+    print('sharded path: %d frames x %d atoms on %d shards -> %d centers; '
+          'tri_skip on and off bit-identical; %s; covering radius %.9g vs '
+          '%.9g; lag-%d counts equal numpy; top-%d eigenvalues within %.2e of '
+          'float64 numpy; assign_device(mesh=) equal to one device; batched '
+          'timescales at lags %s with the mesh equal to those without, '
+          'eigenvalues within %.2e of the per-lag solve'
+          % (N_FRAMES, N_ATOMS, N_SHARDS, len(ctr), verdict, rs, r1, LAG,
+             N_EIGS, eig_err, list(SHARDED_LAGS), its_err))
+    print('basin data %d x %d on %d shards -> %d centers: tri_skip on and '
+          'off bit-identical, %d of %d tile visits skipped'
+          % (CHECK_FRAMES, N_ATOMS, N_SHARDS, on_b.n_found, skipped, visits))
+    print('[%s] sharded: prepare %.4f s; cluster %.4f s (phase 2 single '
+          'device %.4f s), tri_skip=False run %.4f s (prepare included); '
+          'counts %.4f s; eigsolve %.4f s; assign_device %.4f s (%d qcp '
+          'launches); batched timescales %.4f s; kernel 4 launches %d = %.2f '
+          'per iteration, kernel 3 launches %d (tri_skip=False)'
+          % (card, prep_st.seconds, clu.seconds, t_single, t_off, t_co,
+             t_eig, asg.seconds, asg.qcp, t_its, k4_launches,
+             k4_launches / N_CLUSTERS, k3_launches), flush=True)
+    loop_profile(X, mesh, card)
+    return {'qcp_update': k3_launches, 'kcenters_iteration_skip': k4_launches}
+
+
 def main():
     card = card_line()
     print('card:', card, flush=True)
     device = require_cuda()
     torch.backends.cuda.matmul.allow_tf32 = False
     t = time.perf_counter()
-    _build.build('kcenters_step', 'qcp_matrix', 'ell_spmm')
-    for name in ('kcenters_step', 'qcp_matrix', 'ell_spmm'):
+    sources = ('kcenters_step', 'qcp_update', 'qcp_matrix', 'ell_spmm')
+    _build.build(*sources)
+    for name in sources:
         _build.load_library(name)
-    print('built %s, %s and %s in %.3f s (nvcc %s)'
-          % (SOURCE, QCP_SOURCE, ELL_SOURCE, time.perf_counter() - t,
-             ' '.join(_build.NVCC_FLAGS)), flush=True)
+    print('built %s, %s, %s and %s in %.3f s (nvcc %s)'
+          % (SOURCE, UPDATE_SOURCE, QCP_SOURCE, ELL_SOURCE,
+             time.perf_counter() - t, ' '.join(_build.NVCC_FLAGS)),
+          flush=True)
 
     # -- 1. kernel against plain version on basin data ---------------------
     X = basin_data(np.random.default_rng(0), CHECK_FRAMES, N_ATOMS,
@@ -932,6 +1373,7 @@ def main():
                                     + times['kernel'] + times['plain'][1:]),
              max_abs_err), flush=True)
 
+    single, t_single = res, t_cl
     del frames, prep, res, counts, start, outs
     torch.cuda.empty_cache()
 
@@ -977,11 +1419,23 @@ def main():
     # -- 7. the large-MSM eigensolve and implied timescales ----------------
     ell_launches = eigensolve_path(T, pi, S, card)
     its_launches = its_path(card)
+    torch.cuda.empty_cache()
+
+    # -- 8. the one-iteration kernels of the sharded loop ------------------
+    frames = random_walk(device)
+    it = iteration_kernels(device, frames, card)
+    torch.cuda.empty_cache()
+
+    # -- 9. the sharded path at full size ----------------------------------
+    sharded = sharded_path(device, frames, single, t_single, card)
+    del frames
     print('launches: north star kcenters_step %d; cluster -> reassign '
           'kcenters_step %d, qcp_matrix %d; scale-point eigensolve ell_spmm '
-          '%d; implied timescales ell_spmm %d'
+          '%d; implied timescales ell_spmm %d; sharded path '
+          'kcenters_iteration_skip %d; tri_skip=False qcp_update %d'
           % (launches, path['kcenters_step'], path['qcp_matrix'],
-             ell_launches, its_launches))
+             ell_launches, its_launches, sharded['kcenters_iteration_skip'],
+             sharded['qcp_update']))
 
     print(json.dumps({'kernels': [{
         'name': 'kcenters_step', 'route': 'cuda', 'source': SOURCE,
@@ -995,7 +1449,13 @@ def main():
         'bound_ms': qcp_bound[0], 'bound_by': qcp_bound[1],
         'library_ms': None}, {
         'name': 'ell_spmm', 'route': 'cuda', 'source': ELL_SOURCE,
-        'replaces': ELL_REPLACES, 'launches': ell_launches, **ell}]}))
+        'replaces': ELL_REPLACES, 'launches': ell_launches, **ell}, {
+        'name': 'qcp_update', 'route': 'cuda', 'source': UPDATE_SOURCE,
+        'replaces': UPDATE_REPLACES, 'launches': sharded['qcp_update'],
+        **it['3']}, {
+        'name': 'kcenters_iteration_skip', 'route': 'cuda', 'source': SOURCE,
+        'replaces': SKIP_REPLACES,
+        'launches': sharded['kcenters_iteration_skip'], **it['4']}]}))
     print(card)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -17,6 +17,19 @@ Nearest-center assignment (:func:`assign_device`) and the PAM sweeps
 (``engine_kmedoids``) take their RMSD blocks from
 :mod:`enspara_tpu_torch.ops.qcp_matrix`: on the card, the all-pairs
 CUDA kernel.
+
+With a :class:`~enspara_tpu_torch.parallel.mesh.FrameMesh` of more than
+one shard, the frames are laid out per shard (:class:`ShardedRMSDFrames`,
+shard s holding global frames ``[s*n_local, (s+1)*n_local)``), and
+k-centers runs the sharded loop of the JAX package
+(:func:`_kcenters_loop_fused_sharded`): each shard runs one iteration
+kernel on its frames (``kcenters_iteration_skip``, or
+``kcenters_iteration`` with ``tri_skip=False``), and the argmax across
+shards and the broadcast of the center's column are torch ops on the
+mesh's lead device, then ``torch.distributed`` collectives when the
+mesh spans processes. Assignment runs per shard. With no mesh, every
+function runs on one device (``device=``, or where the input lies);
+the results do not depend on the shard count.
 """
 
 import math
@@ -25,12 +38,15 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..ops.kcenters_step import kcenters_chunk, start_state
+from ..ops.kcenters_step import (kcenters_chunk, kcenters_iteration_skip,
+                                 skip_t_pad, start_state, tile_summaries)
 from ..ops.qcp_matrix import (TILE_C, pad_centers, pad_frames,
                               qcp_rmsd_matrix_block, to_layout)
+from ..ops.qcp_update import kcenters_iteration
+from ..parallel.mesh import host_fetch, pad_to_multiple
 from ..util.device import resolve_device
 
-__all__ = ['KCentersDeviceResult', 'PreparedRMSDFrames',
+__all__ = ['KCentersDeviceResult', 'PreparedRMSDFrames', 'ShardedRMSDFrames',
            'prepare_rmsd_frames', 'kcenters_device_fused', 'assign_device']
 
 METRIC_TODO = ("only metric 'rmsd' is ported, got %r: the euclidean, "
@@ -41,6 +57,7 @@ METRIC_TODO = ("only metric 'rmsd' is ported, got %r: the euclidean, "
 TILE = 256
 # centers per chunk: the host reads the loop state once per chunk
 CHUNK = 64
+_IMAX32 = 2 ** 31 - 1
 
 
 class KCentersDeviceResult(NamedTuple):
@@ -62,29 +79,104 @@ class PreparedRMSDFrames(NamedTuple):
     tile: int
 
 
-def prepare_rmsd_frames(X, tile=TILE, device=None):
+class ShardedRMSDFrames(NamedTuple):
+    """Frames ingested once into the k-centers layout, cut into the
+    contiguous frame blocks of a mesh: shard s holds global frames
+    ``[s*n_local, (s+1)*n_local)``. ``shards`` holds this process's
+    shards, each a :class:`PreparedRMSDFrames` on its device whose ``n``
+    counts its real frames; ``n_pad = n_local * n_shards`` is a multiple
+    of ``tile * n_shards``."""
+    shards: tuple              # PreparedRMSDFrames, one per local shard
+    n: int                     # real frame count
+    n_atoms: int
+    tile: int
+    n_shards: int              # shards of the whole mesh
+    first_shard: int = 0       # global index of shards[0]
+
+    @property
+    def n_local(self):
+        return int(self.shards[0].frames_r.shape[1])
+
+
+def _layout(X, n_pad, a_pad):
+    """Centered ``(n, A, 3)`` float32 frames -> the ``(3*a_pad, n_pad)``
+    layout and the (1, n_pad) G row, 1.0 past n, on X's device."""
+    n, A = int(X.shape[0]), int(X.shape[1])
+    centered = X - X.mean(dim=1, keepdim=True)
+    g = torch.ones((1, n_pad), dtype=torch.float32, device=X.device)
+    g[0, :n] = (centered * centered).sum(dim=(1, 2))
+    frames = torch.zeros((3, a_pad, n_pad), dtype=torch.float32,
+                         device=X.device)
+    frames[:, :A, :n] = centered.permute(2, 1, 0)
+    return frames.view(3 * a_pad, n_pad), g
+
+
+def _check_coordinates(X):
+    if X.ndim != 3 or X.shape[-1] != 3:
+        raise ValueError('prepare_rmsd_frames requires (n, n_atoms, 3) '
+                         'coordinates, got %s' % (tuple(X.shape),))
+
+
+def prepare_rmsd_frames(X, tile=TILE, device=None, mesh=None):
     """Ingest ``(n, n_atoms, 3)`` coordinates (numpy or a tensor) into
     the k-centers layout on ``device`` (default: where a tensor ``X``
     lies, the card for host data).
     Frames are centered here; ``A_pad`` is the atom count rounded up to
     a multiple of 8 and ``n_pad`` the frame count rounded up to a
-    multiple of ``tile``."""
+    multiple of ``tile``.
+
+    With a ``mesh`` of more than one shard, returns a
+    :class:`ShardedRMSDFrames`: ``n_pad`` rounded up to a multiple of
+    ``tile * mesh.size`` and each of this process's shards laid out on
+    its device. A one-shard mesh prepares on its device."""
+    if mesh is not None:
+        if device is not None:
+            raise ValueError('pass device= or mesh=, not both')
+        if mesh.size > 1:
+            return _prepare_sharded(X, tile, mesh)
+        device = mesh.devices[0]
     device = resolve_device(X, device)
     X = torch.as_tensor(X, dtype=torch.float32, device=device)
-    if X.ndim != 3 or X.shape[-1] != 3:
-        raise ValueError('prepare_rmsd_frames requires (n, n_atoms, 3) '
-                         'coordinates, got %s' % (tuple(X.shape),))
+    _check_coordinates(X)
     n, A = int(X.shape[0]), int(X.shape[1])
-    n_pad = -(-n // tile) * tile
-    A_pad = -(-A // 8) * 8
-    centered = X - X.mean(dim=1, keepdim=True)
-    g = torch.ones((1, n_pad), dtype=torch.float32, device=device)
-    g[0, :n] = (centered * centered).sum(dim=(1, 2))
-    frames = torch.zeros((3, A_pad, n_pad), dtype=torch.float32,
-                         device=device)
-    frames[:, :A, :n] = centered.permute(2, 1, 0)
-    return PreparedRMSDFrames(frames.view(3 * A_pad, n_pad), g, n, A,
-                              int(tile))
+    frames, g = _layout(X, -(-n // tile) * tile, -(-A // 8) * 8)
+    return PreparedRMSDFrames(frames, g, n, A, int(tile))
+
+
+def _prepare_sharded(X, tile, mesh):
+    if not isinstance(X, torch.Tensor):
+        X = np.asarray(X)
+    _check_coordinates(X)
+    n, A = int(X.shape[0]), int(X.shape[1])
+    n_local = pad_to_multiple(max(n, 1), tile * mesh.size) // mesh.size
+    a_pad = -(-A // 8) * 8
+    shards = []
+    for s, dev in enumerate(mesh.devices):
+        lo = min((mesh.first_shard + s) * n_local, n)
+        part = torch.as_tensor(X[lo:min(lo + n_local, n)],
+                               dtype=torch.float32, device=dev)
+        frames, g = _layout(part, n_local, a_pad)
+        shards.append(PreparedRMSDFrames(frames, g, int(part.shape[0]), A,
+                                         int(tile)))
+    return ShardedRMSDFrames(tuple(shards), n, A, int(tile), mesh.size,
+                             mesh.first_shard)
+
+
+def _prepared(X, tile, device, mesh):
+    """``X`` when it is already prepared for ``mesh`` (raising when its
+    shard count or tile disagree), else ``X`` prepared."""
+    if isinstance(X, (PreparedRMSDFrames, ShardedRMSDFrames)):
+        got = X.n_shards if isinstance(X, ShardedRMSDFrames) else 1
+        expect = 1 if mesh is None else mesh.size
+        if got != expect:
+            raise ValueError('prepared frames were laid out for %d '
+                             'shard(s), mesh has %d' % (got, expect))
+        if tile is not None and tile != X.tile:
+            raise ValueError('prepared frames use tile=%d, got tile=%d'
+                             % (X.tile, tile))
+        return X
+    return prepare_rmsd_frames(X, tile=tile or TILE, device=device,
+                               mesh=mesh)
 
 
 def _kcenters_loop(prep, dist, assig, n_start, n_clusters, dist_cutoff,
@@ -103,34 +195,165 @@ def _kcenters_loop(prep, dist, assig, n_start, n_clusters, dist_cutoff,
     return ctr[:k_max], i
 
 
+class ShardedKCentersState(NamedTuple):
+    """The sharded loop's state: this process's per-shard rows and the
+    replicated scalars, (1, 1) tensors on the mesh's lead device."""
+    dist: list                 # (1, n_local) float32 per local shard
+    assig: list                # (1, n_local) int32 per local shard
+    tmax: list                 # (1, t_pad) float32 per local shard
+    gidx: torch.Tensor         # int32: the next center's global index
+    md: torch.Tensor           # float32: its distance, the global max
+    i: torch.Tensor            # int32: the ordinal it would take
+    skipped: torch.Tensor      # int64 (0-d): tile visits skipped
+
+
+def _global_best(mesh, lmax, largmax, starts):
+    """``(md, gidx)`` as (1, 1) tensors on the lead device: the max of
+    the shards' maxima and the smallest global index among the shards
+    holding it (the serial ``np.argmax``). ``starts`` (int32, on the
+    lead device) is each local shard's first global frame."""
+    lead = mesh.lead
+    vals = torch.cat([v.reshape(1).to(lead) for v in lmax])
+    args = torch.cat([a.reshape(1).to(lead) for a in largmax]) + starts
+    if mesh.spans_processes:
+        # float64 holds both the float32 maxima and the int32 indices
+        both = mesh.all_gather(torch.stack((vals.double(), args.double()),
+                                           dim=1))
+        vals, args = both[:, 0].float(), both[:, 1].int()
+    md = vals.max()
+    return (md.reshape(1, 1),
+            torch.where(vals == md, args, _IMAX32).min().reshape(1, 1))
+
+
+def _kcenters_loop_fused_sharded(prep, dist, assig, n_start, n_clusters,
+                                 dist_cutoff, k_max, mesh, tri_skip=True):
+    """K-centers over the shards of ``mesh`` (the JAX package's
+    ``engine.py :: _kcenters_loop_fused_sharded``).
+
+    ``prep`` is a :class:`ShardedRMSDFrames`; ``dist``/``assig`` are
+    this process's (1, n_local) per-shard state, updated in place. Each
+    iteration places the center chosen across the shards: its column
+    and G are the owner-masked sum of every shard's copy (the
+    reference's Bcast from the owner rank); each shard runs one
+    iteration kernel against it, ``kcenters_iteration_skip`` (tiles at
+    or below md/2 skip, md the global max) or, with ``tri_skip=False``,
+    ``kcenters_iteration``; the next center is the global first argmax
+    of the shards' (max, argmax). All of it stays on the devices: the
+    host reads ``(i, md)`` once per ``CHUNK`` iterations, and a device
+    flag makes the iterations past the stop leave the state untouched.
+
+    Returns ``(state, ctr (k_max,) int32, n_found)``; ``ctr`` holds -1
+    in the warm-start slots.
+    """
+    lead, tile = mesh.lead, prep.tile
+    n_local, n_loc = prep.n_local, len(prep.shards)
+    rows = int(prep.shards[0].frames_r.shape[0])
+    first = prep.first_shard
+    starts = torch.arange(first, first + n_loc, dtype=torch.int32,
+                          device=lead) * n_local
+    shard_ids = torch.arange(first, first + n_loc, dtype=torch.int32,
+                             device=lead)
+
+    lm, la = [], []
+    for d in dist:
+        arg = torch.argmax(d[0])
+        lm.append(d[0, arg])
+        la.append(arg.to(torch.int32))
+    md, gidx = _global_best(mesh, lm, la, starts)
+    t_pad = skip_t_pad(n_local // tile)
+    tmax = [tile_summaries(d, tile, t_pad) for d in dist]
+    i = torch.full((1, 1), int(n_start), dtype=torch.int32, device=lead)
+    skipped = torch.zeros((), dtype=torch.int64, device=lead)
+    # slot k_max takes the writes of the iterations past the stop
+    ctr = torch.full((k_max + 1,), -1, dtype=torch.int32, device=lead)
+    cutoff = float(np.float32(dist_cutoff))
+
+    def step(md, gidx, i, skipped):
+        go = (i < n_clusters) & (md > cutoff)
+        stop = (~go).to(torch.int32)
+        ctr.index_put_((torch.where(go, i, k_max).reshape(1).long(),),
+                       gidx.reshape(1))
+        # the center's column and G: owner-masked, summed over shards
+        owner = torch.div(gidx, n_local, rounding_mode='floor')
+        lidx = (gidx - owner * n_local).reshape(1)
+        onehot = (shard_ids == owner.reshape(1)).to(torch.float32)
+        parts = []
+        for s, sh in enumerate(prep.shards):
+            li = lidx.to(sh.g.device)
+            cg = torch.cat((sh.frames_r.index_select(1, li),
+                            sh.g.index_select(1, li)))
+            parts.append(cg.to(lead) * onehot[s])
+        cg = mesh.all_reduce(torch.stack(parts).sum(0))
+        col, gc = cg[:rows], cg[rows:]
+        lms, las, skcs = [], [], []
+        for s, sh in enumerate(prep.shards):
+            c, g1, i1, m1, st = (t.to(sh.g.device)
+                                 for t in (col, gc, i, md, stop))
+            if tri_skip:
+                out = kcenters_iteration_skip(
+                    sh.frames_r, sh.g, dist[s], assig[s], tmax[s], c, g1,
+                    i1, m1, prep.n_atoms, tile=tile, stop=st)
+                lms.append(out[3])
+                las.append(out[4])
+                skcs.append(out[5].to(lead))
+            else:
+                out = kcenters_iteration(
+                    sh.frames_r, sh.g, dist[s], assig[s],
+                    c.view(3, rows // 3).t().contiguous(), g1, i1,
+                    prep.n_atoms, tile=tile, with_argmax=True, stop=st)
+                lms.append(out[2])
+                las.append(out[3])
+        md2, gidx2 = _global_best(mesh, lms, las, starts)
+        if skcs:
+            skipped = skipped + torch.stack(skcs).sum()
+        return (torch.where(go, md2, md), torch.where(go, gidx2, gidx),
+                i + go.to(torch.int32), skipped)
+
+    while True:
+        h = torch.cat((i.reshape(1).double(), md.reshape(1).double())).cpu()
+        n_found, md_h = int(h[0]), float(h[1])
+        if n_found >= n_clusters or not md_h > cutoff:
+            break
+        for _ in range(min(CHUNK, n_clusters - n_found)):
+            md, gidx, i, skipped = step(md, gidx, i, skipped)
+    state = ShardedKCentersState(dist, assig, tmax, gidx, md, i,
+                                 mesh.all_reduce(skipped))
+    return state, ctr[:k_max], n_found
+
+
 def kcenters_device_fused(X, n_clusters=None, dist_cutoff=None,
                           k_max=None, init_distances=None,
                           init_assignments=None, n_init_centers=0,
                           init_center_indices=None, tile=None,
-                          device=None):
-    """K-centers by QCP RMSD on one device.
+                          device=None, mesh=None, tri_skip=True):
+    """K-centers by QCP RMSD on one device or over the shards of a
+    mesh.
 
     ``X`` is a :class:`PreparedRMSDFrames`, which clusters where its
-    frames lie, or ``(n, n_atoms, 3)`` coordinates, prepared on
-    ``device`` (default: where a tensor ``X`` lies, the card for host
-    data).
+    frames lie, a :class:`ShardedRMSDFrames` laid out for ``mesh``, or
+    ``(n, n_atoms, 3)`` coordinates, prepared on ``device`` (default:
+    where a tensor ``X`` lies, the card for host data) or, given a
+    ``mesh`` (:class:`~enspara_tpu_torch.parallel.mesh.FrameMesh`), over
+    its shards. Prepared frames whose shard count differs from the
+    mesh's raise.
     Stops at ``n_clusters`` centers or once the max distance is
     ``<= dist_cutoff``. A warm start passes the previous run's
     ``init_distances``/``init_assignments`` with ``n_init_centers``
-    (and optionally ``init_center_indices``). On CUDA the loop runs the
-    tri-skip kernel; on the CPU its plain version.
+    (and optionally ``init_center_indices``). On one CUDA device the
+    loop runs the tri-skip chunk kernel; over several shards, the
+    sharded loop with the one-iteration tri-skip kernel, or with
+    ``tri_skip=False`` the one-iteration kernel that skips nothing (the
+    results are the same). On the CPU each kernel takes its plain
+    version.
 
-    Returns a :class:`KCentersDeviceResult` of host arrays.
+    Returns a :class:`KCentersDeviceResult` of host arrays (on every
+    process of a mesh that spans processes).
     """
-    if isinstance(X, PreparedRMSDFrames):
-        prep = X
-        if tile is not None and tile != prep.tile:
-            raise ValueError('prepared frames use tile=%d, got tile=%d'
-                             % (prep.tile, tile))
-    else:
-        prep = prepare_rmsd_frames(X, tile=tile or TILE, device=device)
-    n, n_pad = prep.n, prep.frames_r.shape[1]
-    dev = prep.frames_r.device
+    prep = _prepared(X, tile, device, mesh)
+    n = prep.n
+    sharded = isinstance(prep, ShardedRMSDFrames)
+    n_pad = prep.n_local * prep.n_shards if sharded \
+        else prep.frames_r.shape[1]
 
     if k_max is None:
         k_max = int(n_clusters) if n_clusters is not None else n
@@ -145,18 +368,35 @@ def kcenters_device_fused(X, n_clusters=None, dist_cutoff=None,
         dist[0, :n] = init_distances
         assig[0, :n] = init_assignments
     dist[0, n:] = -math.inf
-    dist_t = torch.from_numpy(dist).to(dev)
-    assig_t = torch.from_numpy(assig).to(dev)
 
-    ctr, n_found = _kcenters_loop(prep, dist_t, assig_t,
-                                  int(n_init_centers), n_clusters_eff,
-                                  cutoff_eff, k_max)
-    dists = dist_t[0, :n].cpu().numpy().astype(np.float64)
-    assigs = assig_t[0, :n].cpu().numpy().astype(np.int64)
+    if sharded:
+        n_local = prep.n_local
+
+        def local(a, s):
+            lo = (prep.first_shard + s) * n_local
+            return torch.from_numpy(a[:, lo:lo + n_local].copy()).to(
+                prep.shards[s].g.device)
+        state, ctr, n_found = _kcenters_loop_fused_sharded(
+            prep, [local(dist, s) for s in range(len(prep.shards))],
+            [local(assig, s) for s in range(len(prep.shards))],
+            int(n_init_centers), n_clusters_eff, cutoff_eff, k_max, mesh,
+            tri_skip=tri_skip)
+        dists = host_fetch(state.dist, mesh, axis=1)[0, :n]
+        assigs = host_fetch(state.assig, mesh, axis=1)[0, :n]
+    else:
+        dev = prep.frames_r.device
+        dist_t = torch.from_numpy(dist).to(dev)
+        assig_t = torch.from_numpy(assig).to(dev)
+        ctr, n_found = _kcenters_loop(prep, dist_t, assig_t,
+                                      int(n_init_centers), n_clusters_eff,
+                                      cutoff_eff, k_max)
+        dists = dist_t[0, :n].cpu().numpy()
+        assigs = assig_t[0, :n].cpu().numpy()
     ctr_inds = ctr[:n_found].cpu().numpy().astype(np.int64)
     if init_center_indices is not None:
         ctr_inds[:n_init_centers] = init_center_indices
-    return KCentersDeviceResult(dists, assigs, ctr_inds, n_found)
+    return KCentersDeviceResult(dists.astype(np.float64),
+                                assigs.astype(np.int64), ctr_inds, n_found)
 
 
 def require_rmsd(metric):
@@ -242,29 +482,42 @@ def _assign_all_rmsd(prep, centers):
     return best_i, best_d
 
 
-def assign_device(X, centers, metric='rmsd', device=None):
-    """Assign every frame to its nearest center: the batched device
-    form of ``assign_to_nearest_center``.
-
-    ``X`` is ``(n, n_atoms, 3)`` coordinates (numpy or a tensor),
-    prepared on ``device`` (default: where a tensor ``X`` lies, the card
-    for host data), or a
-    :class:`PreparedRMSDFrames`; ``centers`` is ``(k, n_atoms, 3)``.
-    Frames and centers are centered on the device. Only
-    ``metric='rmsd'`` is ported.
-
-    Returns ``(assignments (n,) int64, distances (n,) float64)`` as
-    numpy arrays.
-    """
-    require_rmsd(metric)
-    prep = X if isinstance(X, PreparedRMSDFrames) \
-        else prepare_rmsd_frames(X, device=device)
+def _centers_tensor(centers, prep):
     C = torch.as_tensor(np.asarray(centers) if not isinstance(
         centers, torch.Tensor) else centers, dtype=torch.float32,
         device=prep.g.device)
     if C.ndim != 3 or C.shape[1:] != (prep.n_atoms, 3):
         raise ValueError('centers must be (k, %d, 3), got %s'
                          % (prep.n_atoms, tuple(C.shape)))
-    assigs, dists = _assign_all_rmsd(prep, _center_structures(C))
-    return (assigs[:prep.n].cpu().numpy().astype(np.int64),
-            dists[:prep.n].cpu().numpy().astype(np.float64))
+    return _center_structures(C)
+
+
+def assign_device(X, centers, metric='rmsd', device=None, mesh=None):
+    """Assign every frame to its nearest center: the batched device
+    form of ``assign_to_nearest_center``.
+
+    ``X`` is ``(n, n_atoms, 3)`` coordinates (numpy or a tensor),
+    prepared on ``device`` (default: where a tensor ``X`` lies, the card
+    for host data) or over the shards of ``mesh``, or a
+    :class:`PreparedRMSDFrames` or :class:`ShardedRMSDFrames`;
+    ``centers`` is ``(k, n_atoms, 3)``. Frames and centers are centered
+    on the device. Over a mesh each shard assigns its own frames (the
+    all-pairs kernel per shard, centers replicated), with no
+    communication until the results are gathered. Only
+    ``metric='rmsd'`` is ported.
+
+    Returns ``(assignments (n,) int64, distances (n,) float64)`` as
+    numpy arrays.
+    """
+    require_rmsd(metric)
+    prep = _prepared(X, None, device, mesh)
+    if isinstance(prep, ShardedRMSDFrames):
+        out = [_assign_all_rmsd(sh, _centers_tensor(centers, sh))
+               for sh in prep.shards]
+        assigs = host_fetch([a for a, _ in out], mesh)
+        dists = host_fetch([d for _, d in out], mesh)
+    else:
+        assigs, dists = _assign_all_rmsd(prep, _centers_tensor(centers, prep))
+        assigs, dists = assigs.cpu().numpy(), dists.cpu().numpy()
+    return (assigs[:prep.n].astype(np.int64),
+            dists[:prep.n].astype(np.float64))

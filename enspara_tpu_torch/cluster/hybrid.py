@@ -13,6 +13,7 @@ from .engine_kmedoids import kmedoids_sweeps_device
 from .kcenters import kcenters as _kcenters
 from .kmedoids import _kmedoids_iterations
 from .util import run_timed
+from ..parallel.mesh import single_shard_device
 from ..util.backend import check_random_state
 
 logger = logging.getLogger(__name__)
@@ -23,11 +24,12 @@ __all__ = ['KHybrid', 'hybrid', 'hybrid_device']
 class KHybrid(util.MolecularClusterMixin):
     """Sklearn-style estimator: k-centers to place centers, then
     ``kmedoids_updates`` PAM sweeps to refine them (on the card for data
-    on a CUDA device)."""
+    on a CUDA device). A ``mesh`` of one shard runs on its device; more
+    shards raise ``NotImplementedError`` (ROADMAP.md queue 1 step 11)."""
 
     def __init__(self, metric, n_clusters=None, cluster_radius=None,
                  kmedoids_updates=5, random_first_center=False,
-                 random_state=None, device=None):
+                 random_state=None, device=None, mesh=None):
         if n_clusters is None and cluster_radius is None:
             raise ImproperlyConfigured(
                 'Either n_clusters or cluster_radius is required for '
@@ -39,6 +41,7 @@ class KHybrid(util.MolecularClusterMixin):
         self.random_first_center = random_first_center
         self.random_state = random_state
         self.device = device
+        self.mesh = mesh
 
     def fit(self, X, init_centers=None):
         conf = dict(n_iters=self.kmedoids_updates,
@@ -46,7 +49,7 @@ class KHybrid(util.MolecularClusterMixin):
                     dist_cutoff=self.cluster_radius,
                     random_first_center=self.random_first_center,
                     random_state=self.random_state,
-                    device=self.device)
+                    device=self.device, mesh=self.mesh)
         self.result_, self.runtime_ = run_timed(
             hybrid, X, self.metric, init_centers=init_centers, **conf)
         return self
@@ -55,10 +58,12 @@ class KHybrid(util.MolecularClusterMixin):
 @cite('khybrid')
 def hybrid(X, distance_method, n_iters=5, n_clusters=None,
            dist_cutoff=None, random_first_center=False,
-           init_centers=None, random_state=None, device=None):
+           init_centers=None, random_state=None, device=None, mesh=None):
     """K-centers, then ``n_iters`` PAM sweeps from its result. The
     first-center seed is drawn from ``random_state`` before the PAM
-    seed, as in the JAX package."""
+    seed, as in the JAX package. A ``mesh`` of one shard runs on its
+    device; more shards raise ``NotImplementedError``."""
+    device = single_shard_device(mesh, device, 'hybrid')
     random_state = check_random_state(random_state)
 
     result = _kcenters(

@@ -5,8 +5,10 @@ Metric 'rmsd' runs in :func:`enspara_tpu_torch.cluster.engine.
 kcenters_device_fused` (the tri-skip CUDA kernel on the card); a warm
 start from ``init_centers`` assigns the frames to them first through
 :func:`~enspara_tpu_torch.cluster.engine.assign_device` (the all-pairs
-CUDA kernel). Callable metrics run the host loop with the reference's
-semantics.
+CUDA kernel). With ``mesh=`` (a
+:class:`~enspara_tpu_torch.parallel.mesh.FrameMesh`) the frames are
+sharded over it and both run per shard, k-centers with the sharded loop.
+Callable metrics run the host loop with the reference's semantics.
 """
 
 import logging
@@ -22,7 +24,7 @@ from ..util.backend import check_random_state
 
 logger = logging.getLogger(__name__)
 
-__all__ = ['KCenters', 'kcenters']
+__all__ = ['KCenters', 'kcenters', 'kcenters_mpi']
 
 
 class KCenters(util.MolecularClusterMixin):
@@ -41,10 +43,13 @@ class KCenters(util.MolecularClusterMixin):
     device : torch device, optional
         Where to cluster host (numpy) input; tensors cluster where they
         lie.
+    mesh : FrameMesh, optional
+        Shard the frames over this mesh instead (not with ``device``).
     """
 
     def __init__(self, metric, n_clusters=None, cluster_radius=None,
-                 random_first_center=False, random_state=None, device=None):
+                 random_first_center=False, random_state=None, device=None,
+                 mesh=None):
         if n_clusters is None and cluster_radius is None:
             raise ImproperlyConfigured(
                 'Either n_clusters or cluster_radius is required for '
@@ -55,6 +60,7 @@ class KCenters(util.MolecularClusterMixin):
         self.random_first_center = random_first_center
         self.random_state = random_state
         self.device = device
+        self.mesh = mesh
 
     def fit(self, X, init_centers=None):
         conf = self.get_params()
@@ -68,7 +74,8 @@ class KCenters(util.MolecularClusterMixin):
         return {'metric': self.metric, 'n_clusters': self.n_clusters,
                 'cluster_radius': self.cluster_radius,
                 'random_first_center': self.random_first_center,
-                'random_state': self.random_state, 'device': self.device}
+                'random_state': self.random_state, 'device': self.device,
+                'mesh': self.mesh}
 
     def set_params(self, **params):
         for k, v in params.items():
@@ -79,9 +86,11 @@ class KCenters(util.MolecularClusterMixin):
 @cite('kcenters')
 def kcenters(traj, distance_method, n_clusters=None, dist_cutoff=None,
              init_centers=None, random_first_center=False,
-             random_state=None, device=None):
+             random_state=None, device=None, mesh=None):
     """Functional k-centers. ``traj`` is ``(n, n_atoms, 3)`` coordinates
-    (numpy, a tensor, or anything with ``.xyz``).
+    (numpy, a tensor, or anything with ``.xyz``), clustered on
+    ``device`` or, given ``mesh``, sharded over its shards (the results
+    do not depend on the shard count).
 
     ``init_centers`` warm-starts from given structures: every frame is
     assigned to them first, and each must own at least one frame.
@@ -116,9 +125,17 @@ def kcenters(traj, distance_method, n_clusters=None, dist_cutoff=None,
 
     if metric_name is not None:
         return _kcenters_fast(xyz, metric_name, n_clusters, dist_cutoff,
-                              init_centers, device)
+                              init_centers, device, mesh)
     return _kcenters_host(traj, util._get_distance_method(distance_method),
                           n_clusters, dist_cutoff, init_centers)
+
+
+def kcenters_mpi(traj, distance_method, **kwargs):
+    """Name-compat with the reference's MPI entry point
+    (cluster/kcenters.py:103): data parallelism comes from the frame
+    mesh instead of MPI ranks, so pass ``mesh=`` to shard the frames."""
+    kwargs.pop('mpi_mode', None)
+    return kcenters(traj, distance_method, **kwargs)
 
 
 def _init_center_data(init_centers):
@@ -138,16 +155,16 @@ def _reject_ownerless(init_ctr_inds, n_init, init_assignments):
 
 
 def _kcenters_fast(X, metric, n_clusters, dist_cutoff, init_centers,
-                   device):
+                   device, mesh=None):
     engine.require_rmsd(metric)
-    prep = engine.prepare_rmsd_frames(X, device=device)
+    prep = engine.prepare_rmsd_frames(X, device=device, mesh=mesh)
     n_init = 0
     init_distances = init_assignments = init_ctr_inds = None
     init_center_data = []
     if init_centers is not None and len(init_centers):
         init_center_data = _init_center_data(init_centers)
         init_assignments, init_distances = engine.assign_device(
-            prep, np.stack(init_center_data), metric)
+            prep, np.stack(init_center_data), metric, mesh=mesh)
         n_init = len(init_center_data)
         # the min-distance frame of each init cluster is its center's
         # index; an init center that owns no frames has none
@@ -158,7 +175,8 @@ def _kcenters_fast(X, metric, n_clusters, dist_cutoff, init_centers,
     res = engine.kcenters_device_fused(
         prep, n_clusters=n_clusters, dist_cutoff=dist_cutoff,
         init_distances=init_distances, init_assignments=init_assignments,
-        n_init_centers=n_init, init_center_indices=init_ctr_inds)
+        n_init_centers=n_init, init_center_indices=init_ctr_inds,
+        mesh=mesh)
 
     ctr_inds = list(res.center_indices)
     centers = list(init_center_data) + \

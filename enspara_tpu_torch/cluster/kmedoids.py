@@ -17,6 +17,7 @@ from ..exception import DataInvalid, ImproperlyConfigured
 
 from . import engine, util
 from .util import run_timed
+from ..parallel.mesh import single_shard_device
 from ..util.backend import check_random_state
 from ..util.device import resolve_device
 
@@ -36,21 +37,26 @@ class KMedoids(util.MolecularClusterMixin):
         Number of PAM sweeps.
     device : torch device, optional
         Where to run host (numpy) input; tensors run where they lie.
+    mesh : FrameMesh, optional
+        A one-shard mesh runs on its device; more shards raise
+        ``NotImplementedError`` (ROADMAP.md queue 1 step 11).
     """
 
     def __init__(self, metric, n_clusters=None, n_iters=5,
-                 random_state=None, device=None):
+                 random_state=None, device=None, mesh=None):
         self.metric = metric
         self.n_clusters = n_clusters
         self.n_iters = n_iters
         self.random_state = random_state
         self.device = device
+        self.mesh = mesh
 
     def fit(self, X, assignments=None, distances=None,
             cluster_center_inds=None):
         conf = dict(distance_method=self.metric,
                     n_clusters=self.n_clusters, n_iters=self.n_iters,
-                    random_state=self.random_state, device=self.device)
+                    random_state=self.random_state, device=self.device,
+                    mesh=self.mesh)
         self.result_, self.runtime_ = run_timed(
             kmedoids, X, assignments=assignments, distances=distances,
             cluster_center_inds=cluster_center_inds, **conf)
@@ -59,13 +65,15 @@ class KMedoids(util.MolecularClusterMixin):
 
 def kmedoids(X, distance_method, n_clusters=None, n_iters=5,
              assignments=None, distances=None, cluster_center_inds=None,
-             proposals=None, random_state=None, device=None):
+             proposals=None, random_state=None, device=None, mesh=None):
     """Functional k-medoids.
 
     Cold start: picks ``n_clusters`` random frames as medoids. Warm
     start: pass ``assignments`` + ``distances`` (center indices are then
-    recovered) and/or ``cluster_center_inds``.
+    recovered) and/or ``cluster_center_inds``. A ``mesh`` of one shard
+    runs on its device; more shards raise ``NotImplementedError``.
     """
+    device = single_shard_device(mesh, device, 'kmedoids')
     if (cluster_center_inds is None and n_clusters is None
             and (assignments is None or distances is None)):
         raise ImproperlyConfigured(

@@ -11,12 +11,12 @@ inputs of ``ops.qcp_matrix``.
 import numpy as np
 import torch
 
-from .cluster.engine import TILE, PreparedRMSDFrames
+from .cluster.engine import TILE, PreparedRMSDFrames, ShardedRMSDFrames
 from .ops.kcenters_step import make_state
 from .util.device import resolve_device
 
-__all__ = ['prepared_from_numpy', 'state_from_numpy', 'result_to_numpy',
-           'qcp_inputs_from_pallas']
+__all__ = ['prepared_from_numpy', 'sharded_from_numpy', 'state_from_numpy',
+           'result_to_numpy', 'qcp_inputs_from_pallas']
 
 
 def prepared_from_numpy(frames_r, g, n, n_atoms, tile=TILE, device=None):
@@ -36,6 +36,25 @@ def prepared_from_numpy(frames_r, g, n, n_atoms, tile=TILE, device=None):
     return PreparedRMSDFrames(torch.from_numpy(frames).to(device),
                               torch.from_numpy(g_out).to(device),
                               int(n), int(n_atoms), int(tile))
+
+
+def sharded_from_numpy(frames_r, g, n, n_atoms, tile, mesh):
+    """The port's sharded frames from the numpy arrays of a JAX
+    ``PreparedRMSDFrames`` laid out for a mesh of ``mesh.size`` devices
+    (fp32): the frame axis is cut into the mesh's contiguous blocks as
+    it is, and this process's blocks go to their devices."""
+    frames_r = np.asarray(frames_r, np.float32)
+    g = np.asarray(g, np.float32).reshape(1, -1)
+    n_local = frames_r.shape[1] // mesh.size
+    shards = []
+    for s, dev in enumerate(mesh.devices):
+        lo = (mesh.first_shard + s) * n_local
+        shards.append(PreparedRMSDFrames(
+            torch.from_numpy(frames_r[:, lo:lo + n_local].copy()).to(dev),
+            torch.from_numpy(g[:, lo:lo + n_local].copy()).to(dev),
+            int(min(max(n - lo, 0), n_local)), int(n_atoms), int(tile)))
+    return ShardedRMSDFrames(tuple(shards), int(n), int(n_atoms), int(tile),
+                             mesh.size, mesh.first_shard)
 
 
 def state_from_numpy(dist, assig, tmax, rows, gidx0, max0, i_offset,

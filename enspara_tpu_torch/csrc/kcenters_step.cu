@@ -1,10 +1,15 @@
 // Tri-skip k-centers step: Gonzalez farthest-point iterations by QCP
 // RMSD over frames stored frame-minor, one launch per iteration.
 //
-// Replaces two TPU kernels of the JAX package:
+// Replaces three TPU kernels of the JAX package:
 //   enspara_tpu/ops/kcenters_skip_pallas.py :: kcenters_chunk_skip_pallas
 //   enspara_tpu/ops/kcenters_chunk_pallas.py :: kcenters_chunk_pallas
 //     (the same loop without skipping; here the skip=0 switch)
+//   enspara_tpu/ops/kcenters_skip_pallas.py :: kcenters_iteration_skip_pallas
+//     (kc_iter_skip: one iteration of one shard of the sharded loop,
+//     against a center chosen across the shards; the TPU kernel's
+//     sequential grid and hand double-buffered frame DMA become one
+//     block per tile, and its in-kernel argmax the last block's)
 //
 // Layout (the JAX package's, unchanged): frames (3*a_pad, n_pad) fp32,
 // row i*a_pad + a holds coordinate i of atom a, the frame axis is the
@@ -34,8 +39,11 @@
 //     G = sum(col^2), stop test) runs in the last block to finish,
 //     found with a __threadfence + atomic ticket, so an iteration is one
 //     launch and the host syncs once per chunk, not once per center.
-// Making it faster (a persistent kernel, a CUDA graph over a chunk, a
-// bf16 frame stream) is later work.
+// kc_iter_skip streams one shard the same way, with the same skip rule
+// and the same last-block argmax; the per-frame arithmetic and the
+// argmax are kcenters_common.cuh's, shared with qcp_update.cu. Making
+// it faster (a persistent kernel, a CUDA graph over a chunk, a bf16
+// frame stream) is later work.
 //
 // The QCP epilogue (qcp_rmsd.cuh) divides exactly; build without
 // --use_fast_math.
@@ -45,7 +53,7 @@
 #include <math.h>
 #include <stdint.h>
 
-#include "qcp_rmsd.cuh"
+#include "kcenters_common.cuh"
 
 namespace {
 
@@ -61,37 +69,6 @@ struct KcState {
   int stopped;
   unsigned int ticket;   // blocks finished in this launch
 };
-
-constexpr int kMaxWarps = 32;
-
-struct MaxOp {
-  __device__ float operator()(float a, float b) const { return fmaxf(a, b); }
-};
-struct MinIntOp {
-  __device__ int operator()(int a, int b) const { return a < b ? a : b; }
-};
-struct SumOp {
-  __device__ float operator()(float a, float b) const { return a + b; }
-};
-struct SumIntOp {
-  __device__ int operator()(int a, int b) const { return a + b; }
-};
-
-// Reduce over the whole block; every thread gets the result. blockDim
-// is a multiple of 32. The leading __syncthreads lets calls follow
-// each other on the same scratch.
-template <typename T, typename Op>
-__device__ T block_reduce(T v, T identity, Op op, T* scratch) {
-  for (int o = 16; o > 0; o >>= 1) v = op(v, __shfl_xor_sync(0xffffffffu, v, o));
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int n_warps = blockDim.x >> 5;
-  __syncthreads();
-  if (lane == 0) scratch[warp] = v;
-  __syncthreads();
-  v = lane < n_warps ? scratch[lane] : identity;
-  for (int o = 16; o > 0; o >>= 1) v = op(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
 
 // Iteration boundary, run by one whole block: stop test for the center
 // (gidx, md) as ordinal i; if it is placed, copy its column, its G and
@@ -174,22 +151,8 @@ __global__ void kc_iter_kernel(const float* __restrict__ frames,
   if (!skipped) {
     for (int r = threadIdx.x; r < rows; r += blockDim.x) s_col[r] = col[r];
     __syncthreads();
-    float S[9];
-#pragma unroll
-    for (int k = 0; k < 9; ++k) S[k] = 0.0f;
-    const float* px = frames + f;
-    const float* py = px + (long long)a_pad * n_pad;
-    const float* pz = py + (long long)a_pad * n_pad;
-#pragma unroll 4
-    for (int a = 0; a < a_pad; ++a) {
-      const long long off = (long long)a * n_pad;
-      const float x = __ldg(px + off), y = __ldg(py + off), z = __ldg(pz + off);
-      const float cx = s_col[a], cy = s_col[a_pad + a], cz = s_col[2 * a_pad + a];
-      S[0] += x * cx; S[1] += x * cy; S[2] += x * cz;
-      S[3] += y * cx; S[4] += y * cy; S[5] += y * cz;
-      S[6] += z * cx; S[7] += z * cy; S[8] += z * cz;
-    }
-    const float d_new = qcp_rmsd(S, __ldg(g + f) + gc, n_atoms);
+    const float d_new = frame_rmsd(frames, f, n_pad, a_pad, s_col,
+                                   __ldg(g + f) + gc, n_atoms);
     float nd = dist[f];
     if (d_new < nd) {  // strict <: ties keep the older center
       nd = d_new;
@@ -200,34 +163,10 @@ __global__ void kc_iter_kernel(const float* __restrict__ frames,
     if (threadIdx.x == 0) tmax[tile] = m;
   }
 
-  // last-block ticket: publish this block's writes, then count it in
-  __threadfence();
-  __syncthreads();
-  if (threadIdx.x == 0)
-    s_last = atomicAdd(&st->ticket, 1u) == gridDim.x - 1;
-  __syncthreads();
-  if (!s_last) return;
-  __threadfence();
-
-  // global first-max argmax, the np.argmax tie-break: the max over the
-  // tile maxima, the smallest tile holding it, then the smallest lane
-  // of that tile (kcenters_skip_pallas.py:81-92). __ldcg reads through
-  // L2, where the other blocks' writes are.
-  float m = -INFINITY;
-  for (int j = threadIdx.x; j < n_tiles; j += blockDim.x)
-    m = fmaxf(m, __ldcg(tmax + j));
-  m = block_reduce(m, -INFINITY, MaxOp(), fscratch);
-  int win = INT_MAX;
-  for (int j = threadIdx.x; j < n_tiles; j += blockDim.x)
-    if (__ldcg(tmax + j) == m) { win = j; break; }
-  win = block_reduce(win, INT_MAX, MinIntOp(), iscratch);
-  if (win == INT_MAX) win = 0;  // only when every distance is NaN
-  const long long base = (long long)win * blockDim.x;
-  int lane = __ldcg(dist + base + threadIdx.x) == m ? (int)threadIdx.x : INT_MAX;
-  lane = block_reduce(lane, INT_MAX, MinIntOp(), iscratch);
-  if (lane == INT_MAX) lane = 0;
-  const int gidx = (int)(base + lane);
-
+  if (!last_block(&st->ticket, &s_last)) return;
+  // the global first-max argmax (kcenters_skip_pallas.py:81-92)
+  float m;
+  const int gidx = first_argmax(tmax, dist, n_tiles, fscratch, iscratch, &m);
   if (threadIdx.x == 0) {
     st->gidx = gidx;
     st->md = m;
@@ -237,6 +176,71 @@ __global__ void kc_iter_kernel(const float* __restrict__ frames,
   if (ik + 1 < n_iters)
     place_center(frames, n_pad, rows, tmax, n_tiles, col, st, ctr,
                  skipcnt, ik + 1, gidx, m, cid + 1, fscratch, iscratch);
+}
+
+// One k-centers iteration of one shard against a center chosen across
+// the shards (the sharded loop's building block). The center's column,
+// G, ordinal and the global max distance md that chose it arrive in
+// device memory. A tile whose max is <= md/2 (md finite) reads no
+// frames and keeps its tmax: every existing center is >= md from the
+// new one, wherever it lies, so no frame of such a tile can move. The
+// last block to finish writes the shard's (max, first argmax) of the
+// updated distances and the count of tiles skipped. counters is
+// int32[2], {ticket, skipped}, zero between launches. With *stop != 0
+// nothing is read or written but lmax = -inf, largmax = 0, skipcnt = 0.
+__global__ void kc_iter_skip_kernel(
+    const float* __restrict__ frames, const float* __restrict__ g,
+    float* dist, int* assig, float* tmax, const float* __restrict__ col,
+    const float* g_center, const int* center_id, const float* md_p,
+    const int* stop, float* lmax, int* largmax, int* skipcnt, int* counters,
+    long long n_pad, int a_pad, int n_tiles, float n_atoms) {
+  extern __shared__ float s_col[];  // 3 * a_pad floats
+  __shared__ float fscratch[kMaxWarps];
+  __shared__ int iscratch[kMaxWarps];
+  __shared__ int s_last;
+
+  if (*stop) {
+    if (blockIdx.x == 0 && threadIdx.x == 0) {
+      *lmax = -INFINITY;
+      *largmax = 0;
+      *skipcnt = 0;
+    }
+    return;
+  }
+  const float md = *md_p;
+  const int tile = blockIdx.x;
+  const int rows = 3 * a_pad;
+  const long long f = (long long)tile * blockDim.x + threadIdx.x;
+
+  const bool skipped = isfinite(md) && tmax[tile] <= 0.5f * md;
+  if (!skipped) {
+    const float gc = *g_center;
+    const int cid = *center_id;
+    for (int r = threadIdx.x; r < rows; r += blockDim.x) s_col[r] = col[r];
+    __syncthreads();
+    const float d_new = frame_rmsd(frames, f, n_pad, a_pad, s_col,
+                                   __ldg(g + f) + gc, n_atoms);
+    float nd = dist[f];
+    if (d_new < nd) {  // strict <: ties keep the older center
+      nd = d_new;
+      dist[f] = d_new;
+      assig[f] = cid;
+    }
+    const float m = block_reduce(nd, -INFINITY, MaxOp(), fscratch);
+    if (threadIdx.x == 0) tmax[tile] = m;
+  } else if (threadIdx.x == 0) {
+    atomicAdd(counters + 1, 1);  // ordered before the ticket by its fence
+  }
+
+  if (!last_block(reinterpret_cast<unsigned int*>(counters), &s_last)) return;
+  float m;
+  const int gidx = first_argmax(tmax, dist, n_tiles, fscratch, iscratch, &m);
+  if (threadIdx.x == 0) {
+    *lmax = m;
+    *largmax = gidx;
+    *skipcnt = atomicExch(counters + 1, 0);
+    counters[0] = 0;
+  }
 }
 
 }  // namespace
@@ -268,6 +272,24 @@ int kc_chunk(const float* frames, const float* g, float* dist, int* assig,
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   return 0;
+}
+
+// One sharded-loop iteration of one shard (kc_iter_skip_kernel): one
+// launch on `stream`, one block of `tile` threads per tile. Allocates
+// nothing, does not synchronise; returns the launch's cudaError_t.
+int kc_iter_skip(const float* frames, const float* g, float* dist, int* assig,
+                 float* tmax, const float* col, const float* g_center,
+                 const int* center_id, const float* md, const int* stop,
+                 float* lmax, int* largmax, int* skipcnt, int* counters,
+                 long long n_pad, int a_pad, int tile, float n_atoms,
+                 void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int n_tiles = static_cast<int>(n_pad / tile);
+  const size_t smem = static_cast<size_t>(3 * a_pad) * sizeof(float);
+  kc_iter_skip_kernel<<<n_tiles, tile, smem, s>>>(
+      frames, g, dist, assig, tmax, col, g_center, center_id, md, stop, lmax,
+      largmax, skipcnt, counters, n_pad, a_pad, n_tiles, n_atoms);
+  return static_cast<int>(cudaGetLastError());
 }
 
 const char* kc_error_string(int err) {

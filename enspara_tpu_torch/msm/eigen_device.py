@@ -26,12 +26,14 @@ import torch
 from ..ops.sparse import dense_on_device, ell_from_sparse, ell_spmm
 from ..ops.sparse import round_up as _bucket
 from ..util.device import resolve_device
+from .transition_matrices import assigns_to_counts_device
 from .transition_matrices import eigenspectrum as _eigenspectrum_host
 
 logger = logging.getLogger(__name__)
 
 __all__ = ['transpose_timescales_device', 'eigenspectrum_reversible',
-           'implied_timescales_device', 'bucketed_ell_shape']
+           'implied_timescales_device', 'implied_timescales_batched',
+           'bucketed_ell_shape']
 
 
 def _transpose_tail(counts, k):
@@ -600,3 +602,79 @@ def implied_timescales_device(assigns, lag_times, method, n_times=None,
         ts[~(vals > 0)] = np.nan
         out.append(ts)
     return np.array(out)
+
+
+def _batched_lags(a, m, lags, prior, n_states, n_times, sliding_window):
+    """The timescales at every lag of ``lags`` on ``a``'s device: lag-pair
+    counts stacked to (n_lags, n, n) float32, the transpose builder's
+    algebra on the stack (``T = rownorm(C + C^T)``, the zero-row guard,
+    pi from the row sums), one batched symmetrized ``eigvalsh`` and
+    ``-lag / log(w)`` of the top modes after the stationary one."""
+    C = torch.stack([assigns_to_counts_device(
+        a, m, int(lag), n_states, sliding_window=sliding_window)
+        for lag in lags]).to(torch.float32) + prior
+    C_sym = C + C.transpose(1, 2)
+    row = C_sym.sum(dim=2)
+    one = torch.ones_like(row)
+    T = C_sym * torch.where(row > 0, 1.0 / torch.where(row > 0, row, one),
+                            0.0)[:, :, None]
+    pi = row / row.sum(dim=1, keepdim=True)
+    sq = torch.sqrt(pi)
+    inv_sq = torch.where(sq > 0, 1.0 / torch.where(sq > 0, sq, one), 0.0)
+    S = sq[:, :, None] * T * inv_sq[:, None, :]
+    w = torch.linalg.eigvalsh((S + S.transpose(1, 2)) * 0.5)   # ascending
+    top = w.flip(1)[:, 1:n_times + 1]
+    # the reference formula: a negative eigenvalue gives NaN, a unit one
+    # an infinite timescale, as on the host
+    lag_t = torch.as_tensor(np.asarray(lags, np.float32), device=a.device)
+    return -lag_t[:, None] / torch.log(top)
+
+
+def implied_timescales_batched(assigns, lag_times, n_times=None,
+                               sliding_window=True, prior_counts=None,
+                               n_states=None, mesh=None, device=None):
+    """Implied timescales at every lag with the transpose builder, in
+    one batched solve (counterpart of the JAX package's
+    ``implied_timescales_batched``): the lag-pair counts of each lag are
+    stacked and the reversible eigensolve runs as ONE batched
+    symmetrized ``torch.linalg.eigvalsh`` over the (n_lags, n, n) stack,
+    in float32.
+
+    Transpose builder only, no ergodic trimming; gapped (-1) data
+    follows the padded-counting semantics, not the reference's gap
+    compaction. Runs on ``device`` (default: the card). With ``mesh``
+    the lags are split over its shards (padded with lag 1 to fill the
+    last one) and the assignments replicated on every shard; each shard
+    solves its lags, and the results are gathered.
+
+    Returns (n_lags, n_times) float64, like ``implied_timescales``.
+    """
+    from ..parallel.mesh import host_fetch, replicated, shard_frames
+    from ..ra import to_padded
+
+    padded = to_padded(assigns)
+    a = np.asarray(padded.data, dtype=np.int32)
+    m = np.asarray(padded.mask, dtype=bool)
+    if n_states is None:
+        n_states = int(a[m].max()) + 1
+    if n_times is None:
+        n_times = int(np.floor(n_states / 10.0)) + 1
+    if n_times > n_states - 1:
+        n_times = n_states - 1
+    lags = np.asarray(lag_times, dtype=np.int64)
+    if (lags < 1).any():
+        raise ValueError('lag times must be >= 1, got %s' % (lags,))
+    prior = float(np.float32(0.0 if prior_counts is None else prior_counts))
+    args = (prior, int(n_states), int(n_times), bool(sliding_window))
+
+    if mesh is None:
+        dev = resolve_device(None, device)
+        out = _batched_lags(torch.as_tensor(a, device=dev),
+                            torch.as_tensor(m, device=dev), lags, *args)
+        return out.cpu().numpy().astype(np.float64)
+
+    lag_sh, _ = shard_frames(lags, mesh, pad_value=1)
+    outs = [_batched_lags(a_s, m_s, l_s.cpu().numpy(), *args)
+            for a_s, m_s, l_s in zip(replicated(a, mesh), replicated(m, mesh),
+                                     lag_sh)]
+    return host_fetch(outs, mesh).astype(np.float64)[:len(lags)]

@@ -7,7 +7,8 @@ frames are stripped per trajectory *before* pairing, so transitions
 skip over gaps; sliding-window or strided pairing at the lag time;
 accumulation into a scipy COO counts matrix. :func:`assigns_to_counts_device`
 counts masked lag pairs of padded rows on a device with
-``torch.bincount``.
+``torch.bincount``; :func:`assigns_to_counts_sharded` splits the rows
+over the shards of a frame mesh and sums their counts.
 """
 
 import csv
@@ -26,7 +27,8 @@ from ..ra import RaggedArray
 from ..util.device import resolve_device
 
 __all__ = ['TrimMapping', 'assigns_to_counts', 'eigenspectrum',
-           'trim_disconnected', 'eq_probs', 'assigns_to_counts_device']
+           'trim_disconnected', 'eq_probs', 'assigns_to_counts_device',
+           'assigns_to_counts_sharded']
 
 
 class TrimMapping:
@@ -208,6 +210,42 @@ def assigns_to_counts_device(assigns_padded, mask, lag_time, n_states,
     flat = torch.where(valid, start * n_states + end, sentinel)
     counts = torch.bincount(flat.reshape(-1), minlength=sentinel + 1)
     return counts[:sentinel].to(torch.int32).reshape(n_states, n_states)
+
+
+def assigns_to_counts_sharded(assigns_padded, mask, lag_time, n_states,
+                              sliding_window=True, mesh=None):
+    """:func:`assigns_to_counts_device` with the trajectories split over
+    the shards of ``mesh`` (default: :func:`~enspara_tpu_torch.parallel.
+    mesh.frame_mesh`, every visible card): the rows are padded to a
+    multiple of the shard count with masked-out rows and cut into
+    contiguous blocks, each shard counts its block on its device, and
+    the counts are summed on the lead device, then over the processes
+    of the mesh. Lag pairs never cross rows, so the blocks need no halo.
+
+    The numpy inputs are validated up front (the lag and the masked-in
+    state ids). Returns the (n_states, n_states) int32 tensor on the
+    mesh's lead device.
+    """
+    from ..parallel.mesh import frame_mesh, shard_frames
+
+    if mesh is None:
+        mesh = frame_mesh()
+    a = np.asarray(assigns_padded)
+    m = np.asarray(mask, dtype=bool)
+    if a.size:
+        if not isinstance(lag_time, numbers.Integral) or lag_time < 1:
+            raise exception.DataInvalid(
+                'lag_time must be a positive integer; got %r' % (lag_time,))
+        masked_max = int(np.max(a, initial=-1, where=m))
+        if masked_max >= n_states:
+            raise exception.DataInvalid(
+                'assignment id %d >= n_states=%d' % (masked_max, n_states))
+    a_sh, _ = shard_frames(np.ascontiguousarray(a, np.int32), mesh)
+    m_sh, _ = shard_frames(np.ascontiguousarray(m), mesh, pad_value=False)
+    return mesh.reduce([
+        assigns_to_counts_device(a_s, m_s, lag_time, n_states,
+                                 sliding_window=sliding_window)
+        for a_s, m_s in zip(a_sh, m_sh)])
 
 
 def eigenspectrum(T, n_eigs=None, left=True, maxiter=100000, tol=1E-30):

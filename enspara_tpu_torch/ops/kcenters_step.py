@@ -23,6 +23,15 @@ strict. The CUDA kernel skips such tiles without reading their frames;
 and :func:`kcenters_chunk_plain`, the plain PyTorch version with the
 same semantics and no skipping, on CPU tensors. Both update the state
 in place.
+
+:func:`kcenters_iteration_skip` is one iteration of one shard of the
+sharded loop (counterpart of ``kcenters_iteration_skip_pallas``): the
+center was chosen across the shards and arrives as device tensors (its
+column, G, ordinal, and the global max distance ``md`` that chose it),
+the same skip rule holds against that global ``md``, and the call
+returns the shard's (max, first argmax) and skip count for the
+collective. Its CUDA kernel is ``kc_iter_skip`` of the same source;
+:func:`kcenters_iteration_skip_plain` is its plain version.
 """
 
 import ctypes
@@ -37,7 +46,8 @@ from . import _build
 from .qcp import _einsum_fp32, rmsd_from_S_components_unrolled
 
 __all__ = ['KCentersState', 'make_state', 'start_state', 'tile_summaries',
-           'skip_t_pad', 'kcenters_chunk', 'kcenters_chunk_plain']
+           'skip_t_pad', 'kcenters_chunk', 'kcenters_chunk_plain',
+           'kcenters_iteration_skip', 'kcenters_iteration_skip_plain']
 
 # slots of the int32[8] scalar block, the KcState struct of the CUDA source
 _GIDX, _MD, _GC, _I, _NTOT, _CUTOFF, _STOPPED, _TICKET = range(8)
@@ -105,8 +115,9 @@ def start_state(dist, assig, rows, tile, n_start, n_total, dist_cutoff):
                       dist_cutoff)
 
 
-def _check(prep, state, n_iters):
-    frames, g, tile = prep.frames_r, prep.g, int(prep.tile)
+def check_layout(frames, tile):
+    """Raise ``ValueError`` unless ``frames`` is the kernels' (3*A_pad,
+    n_pad) float32 layout and ``tile`` a block size that divides it."""
     if frames.dtype != torch.float32 or frames.ndim != 2:
         raise ValueError('frames_r must be 2-D float32, got %s %s'
                          % (frames.dtype, tuple(frames.shape)))
@@ -120,26 +131,46 @@ def _check(prep, state, n_iters):
                          'dividing n_pad=%d, got %d' % (n_pad, tile))
     if n_pad >= 2 ** 31:
         raise ValueError('at most 2**31 - 1 frames, got %d' % n_pad)
-    if not isinstance(n_iters, int) or n_iters < 1:
-        raise ValueError('n_iters must be a positive int, got %r'
-                         % (n_iters,))
-    t_pad = skip_t_pad(n_pad // tile)
-    want = ((frames, torch.float32, (rows, n_pad)),
-            (g, torch.float32, (1, n_pad)),
-            (state.dist, torch.float32, (1, n_pad)),
-            (state.assig, torch.int32, (1, n_pad)),
-            (state.tmax, torch.float32, (1, t_pad)),
-            (state.col, torch.float32, (rows,)),
-            (state.scal, torch.int32, (8,)))
+
+
+def check_args(want, device):
+    """Raise ``ValueError`` unless each ``(tensor, dtype, shape)`` of
+    ``want`` has that dtype and shape, is contiguous and lies on
+    ``device``."""
     for k, (t, dtype, shape) in enumerate(want):
         if t.dtype != dtype or tuple(t.shape) != shape:
             raise ValueError('argument %d: want %s %s, got %s %s'
                              % (k, dtype, shape, t.dtype, tuple(t.shape)))
         if not t.is_contiguous():
             raise ValueError('argument %d must be contiguous' % k)
-        if t.device != frames.device:
+        if t.device != device:
             raise ValueError('argument %d lies on %s, frames on %s'
-                             % (k, t.device, frames.device))
+                             % (k, t.device, device))
+
+
+def check_device(device, what):
+    """Raise ``ValueError`` unless ``device`` is CPU or CUDA: the two
+    places a kernel wrapper runs (its plain version, its kernel)."""
+    if device.type not in ('cpu', 'cuda'):
+        raise ValueError('%s runs on CUDA or CPU tensors, got %s'
+                         % (what, device))
+
+
+def _check(prep, state, n_iters):
+    frames, tile = prep.frames_r, int(prep.tile)
+    check_layout(frames, tile)
+    if not isinstance(n_iters, int) or n_iters < 1:
+        raise ValueError('n_iters must be a positive int, got %r'
+                         % (n_iters,))
+    rows, n_pad = frames.shape
+    t_pad = skip_t_pad(n_pad // tile)
+    check_args(((frames, torch.float32, (rows, n_pad)),
+                (prep.g, torch.float32, (1, n_pad)),
+                (state.dist, torch.float32, (1, n_pad)),
+                (state.assig, torch.int32, (1, n_pad)),
+                (state.tmax, torch.float32, (1, t_pad)),
+                (state.col, torch.float32, (rows,)),
+                (state.scal, torch.int32, (8,))), frames.device)
 
 
 def kcenters_chunk_plain(prep, state, n_iters):
@@ -195,6 +226,9 @@ def _kernel():
                                        ctypes.c_int, ctypes.c_int,
                                        ctypes.c_float, ctypes.c_int, p]
     lib.kc_chunk.restype = ctypes.c_int
+    lib.kc_iter_skip.argtypes = [p] * 14 + [ctypes.c_longlong, ctypes.c_int,
+                                            ctypes.c_int, ctypes.c_float, p]
+    lib.kc_iter_skip.restype = ctypes.c_int
     lib.kc_error_string.argtypes = [ctypes.c_int]
     lib.kc_error_string.restype = ctypes.c_char_p
     return lib
@@ -217,11 +251,9 @@ def kcenters_chunk(prep, state, n_iters, skip=True):
     """
     _check(prep, state, n_iters)
     device = prep.frames_r.device
+    check_device(device, 'kcenters_chunk')
     if device.type == 'cpu':
         return kcenters_chunk_plain(prep, state, n_iters)
-    if device.type != 'cuda':
-        raise ValueError('kcenters_chunk runs on CUDA or CPU tensors, '
-                         'got %s' % device)
     lib = _kernel()
     ctr = torch.full((n_iters,), -1, dtype=torch.int32, device=device)
     skipcnt = torch.full_like(ctr, -1)
@@ -247,3 +279,142 @@ def kcenters_chunk(prep, state, n_iters, skip=True):
 
 # CUDA kernel launches made by kcenters_chunk (the plain version adds none)
 kcenters_chunk.n_launches = 0
+
+
+# ---------------------------------------------------------------------
+# one iteration of one shard of the sharded loop
+# ---------------------------------------------------------------------
+
+_SCRATCH = {}
+
+
+def device_scratch(device):
+    """The per-device int32[4] scratch of the one-iteration kernels:
+    [0] the last-block ticket, [1] the skipped-tile count (both zero
+    between launches: the last block resets them), [2] always 0, the
+    stop flag of a call given none. Launches that share it run on one
+    stream, one after another."""
+    key = str(device)
+    if key not in _SCRATCH:
+        _SCRATCH[key] = torch.zeros(4, dtype=torch.int32, device=device)
+    return _SCRATCH[key]
+
+
+def _check_iteration(frames, g, dist, assig, tile, scalars):
+    check_layout(frames, tile)
+    n_pad = frames.shape[1]
+    check_args(((g, torch.float32, (1, n_pad)),
+                (dist, torch.float32, (1, n_pad)),
+                (assig, torch.int32, (1, n_pad))) + tuple(scalars),
+               frames.device)
+
+
+def _stop_flag(stop, device):
+    return device_scratch(device)[2:3].view(1, 1) if stop is None else stop
+
+
+def kcenters_iteration_skip_plain(frames_r, g, dist, assig, tmax, col,
+                                  g_center, center_id, md, n_atoms_real,
+                                  tile=256, stop=None):
+    """The plain PyTorch version of :func:`kcenters_iteration_skip` on
+    any device: every tile is computed (nothing skipped), with the
+    kernel's update, tie-break, ``tmax`` and ``skipcnt`` (the tiles the
+    rule lets skip, counted from ``tmax`` before the update)."""
+    _check_iteration(frames_r, g, dist, assig, tile, _skip_scalars(
+        frames_r, tmax, col, g_center, center_id, md, stop, tile))
+    dev = frames_r.device
+    lmax = torch.full((1, 1), -math.inf, dtype=torch.float32, device=dev)
+    largmax = torch.zeros((1, 1), dtype=torch.int32, device=dev)
+    skipcnt = torch.zeros((1, 1), dtype=torch.int32, device=dev)
+    if stop is not None and int(stop.reshape(())):
+        return dist, assig, tmax, lmax, largmax, skipcnt
+    rows, n_pad = frames_r.shape
+    a_pad, n_tiles = rows // 3, n_pad // tile
+    md = md.reshape(())
+    tm = tmax[0, :n_tiles]
+    if torch.isfinite(md):
+        skipcnt.fill_(int((tm <= 0.5 * md).sum()))
+    S = _einsum_fp32('ian,ja->ijn', frames_r.view(3, a_pad, n_pad),
+                     col.view(3, a_pad))
+    d_new = rmsd_from_S_components_unrolled(
+        tuple(S[p, q] for p in range(3) for q in range(3)),
+        g[0] + g_center.reshape(()), float(n_atoms_real))
+    upd = d_new < dist[0]
+    dist[0] = torch.where(upd, d_new, dist[0])
+    assig[0] = torch.where(upd, center_id.reshape(()), assig[0])
+    tm.copy_(dist[0].view(n_tiles, tile).amax(dim=1))
+    arg = torch.argmax(dist[0])
+    lmax.fill_(dist[0, arg])
+    largmax.fill_(arg)
+    return dist, assig, tmax, lmax, largmax, skipcnt
+
+
+def _skip_scalars(frames, tmax, col, g_center, center_id, md, stop, tile):
+    rows, n_pad = frames.shape
+    want = ((tmax, torch.float32, (1, skip_t_pad(n_pad // tile))),
+            (col, torch.float32, (rows, 1)),
+            (g_center, torch.float32, (1, 1)),
+            (center_id, torch.int32, (1, 1)),
+            (md, torch.float32, (1, 1)))
+    if stop is not None:
+        want += ((stop, torch.int32, (1, 1)),)
+    return want
+
+
+def kcenters_iteration_skip(frames_r, g, dist, assig, tmax, col, g_center,
+                            center_id, md, n_atoms_real, tile=256,
+                            stop=None):
+    """One k-centers iteration of one shard against a center chosen
+    across the shards, skipping the tiles whose max is ``<= md/2``.
+
+    ``frames_r`` (3*A_pad, n_local) and ``g``, ``dist``, ``assig`` (1,
+    n_local) are the shard's; ``tmax`` (1, t_pad) its per-tile max carry
+    (-inf past the last tile, see :func:`tile_summaries`); ``col``
+    (3*A_pad, 1) the center's column; ``g_center``, ``md`` (1, 1)
+    float32 and ``center_id`` (1, 1) int32 device tensors; ``stop``, an
+    optional (1, 1) int32 device flag: nonzero leaves the state as it
+    is. On CUDA tensors this launches ``kc_iter_skip`` of
+    ``csrc/kcenters_step.cu`` and raises if the launch fails; on CPU
+    tensors it runs :func:`kcenters_iteration_skip_plain`.
+
+    Returns ``(dist, assig, tmax, lmax, largmax, skipcnt)``: the first
+    three updated in place, then this shard's max and first argmax of
+    the updated distances and the skipped-tile count, (1, 1) device
+    tensors (``-inf, 0, 0`` when stopped).
+    """
+    device = frames_r.device
+    check_device(device, 'kcenters_iteration_skip')
+    if device.type == 'cpu':
+        return kcenters_iteration_skip_plain(
+            frames_r, g, dist, assig, tmax, col, g_center, center_id, md,
+            n_atoms_real, tile, stop)
+    _check_iteration(frames_r, g, dist, assig, tile, _skip_scalars(
+        frames_r, tmax, col, g_center, center_id, md, stop, tile))
+    lib = _kernel()
+    lmax = torch.empty((1, 1), dtype=torch.float32, device=device)
+    largmax = torch.empty((1, 1), dtype=torch.int32, device=device)
+    skipcnt = torch.empty((1, 1), dtype=torch.int32, device=device)
+    scratch = device_scratch(device)
+    rows, n_pad = frames_r.shape
+
+    def ptr(t):
+        return ctypes.c_void_p(t.data_ptr())
+
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = lib.kc_iter_skip(
+            ptr(frames_r), ptr(g), ptr(dist), ptr(assig), ptr(tmax),
+            ptr(col), ptr(g_center), ptr(center_id), ptr(md),
+            ptr(_stop_flag(stop, device)), ptr(lmax), ptr(largmax),
+            ptr(skipcnt), ptr(scratch), n_pad, rows // 3, int(tile),
+            float(n_atoms_real), ctypes.c_void_p(stream))
+    if err:
+        raise RuntimeError('kc_iter_skip launch failed: %s (cudaError %d)'
+                           % (lib.kc_error_string(err).decode(), err))
+    kcenters_iteration_skip.n_launches += 1
+    return dist, assig, tmax, lmax, largmax, skipcnt
+
+
+# CUDA kernel launches made by kcenters_iteration_skip (the plain version
+# adds none)
+kcenters_iteration_skip.n_launches = 0

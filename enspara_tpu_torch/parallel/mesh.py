@@ -1,0 +1,301 @@
+"""The frame mesh: where the shards of a frame-sharded job live
+(counterpart of ``enspara_tpu/parallel/mesh.py``).
+
+The frame axis of a sharded job is cut into ``mesh.size`` contiguous
+blocks: shard ``s`` owns global frames ``[s*n_local, (s+1)*n_local)``,
+the JAX package's layout, so global indices compare one to one with it.
+
+A :class:`FrameMesh` holds this process's shards as an ordered tuple of
+``torch.device``s. A device may appear more than once (virtual shards):
+that is how one card runs a 4-shard mesh, and how the CPU tests run an
+8-shard one, the counterpart of the JAX suite's 8 virtual CPU devices.
+When the job spans processes, the mesh also carries a
+``torch.distributed`` process group; every process then holds the same
+number of shards, and process ``r``'s shards are the global shards
+``r*n_local_shards ..``. Collectives reduce over the local shards with
+torch ops on the lead device (``devices[0]``), then over the group with
+``torch.distributed`` (gloo for CPU shards, NCCL for CUDA ones).
+
+Multi-process jobs call :func:`initialize_distributed` first. Unlike the
+JAX package, small jobs are not rerouted to the CPU: a mesh of CUDA
+devices runs on them or raises.
+"""
+
+import os
+
+import numpy as np
+import torch
+
+FRAME_AXIS = 'frames'
+
+__all__ = ['FRAME_AXIS', 'FrameMesh', 'frame_mesh', 'n_devices',
+           'pad_to_multiple', 'shard_frames', 'replicated', 'host_fetch',
+           'initialize_distributed', 'install_abort_excepthook',
+           'single_shard_device']
+
+
+def _world_group():
+    """The default process group when one with more than one process is
+    set up, else None."""
+    import torch.distributed as dist
+    if dist.is_available() and dist.is_initialized() \
+            and dist.get_world_size() > 1:
+        return dist.group.WORLD
+    return None
+
+
+class FrameMesh:
+    """This process's frame shards, in order, and the process group the
+    job spans (None for a single process).
+
+    ``FrameMesh((cuda0,) * 4)`` runs four shards on one card;
+    ``FrameMesh(['cpu'] * 8)`` eight on the CPU. The devices are never
+    changed: a shard on a CUDA device runs its kernels there or raises.
+    """
+
+    def __init__(self, devices, group=None):
+        devs = []
+        for d in devices:
+            d = torch.device(d)
+            if d.type == 'cuda' and d.index is None:
+                d = torch.device('cuda', torch.cuda.current_device())
+            devs.append(d)
+        if not devs:
+            raise ValueError('a FrameMesh needs at least one device')
+        if len({d.type for d in devs}) != 1:
+            raise ValueError('a FrameMesh holds devices of one type, got %s'
+                             % [str(d) for d in devs])
+        self.devices = tuple(devs)
+        self.group = group
+
+    @property
+    def n_local(self):
+        """Shards held by this process."""
+        return len(self.devices)
+
+    @property
+    def process_count(self):
+        if self.group is None:
+            return 1
+        import torch.distributed as dist
+        return dist.get_world_size(self.group)
+
+    @property
+    def process_index(self):
+        if self.group is None:
+            return 0
+        import torch.distributed as dist
+        return dist.get_rank(self.group)
+
+    @property
+    def size(self):
+        """Shards of the whole job."""
+        return self.n_local * self.process_count
+
+    @property
+    def shape(self):
+        return {FRAME_AXIS: self.size}
+
+    @property
+    def first_shard(self):
+        """Global index of this process's first shard."""
+        return self.process_index * self.n_local
+
+    @property
+    def lead(self):
+        """The device the local reductions land on."""
+        return self.devices[0]
+
+    @property
+    def spans_processes(self):
+        return self.process_count > 1
+
+    def __repr__(self):
+        return 'FrameMesh(%s, processes=%d)' % (
+            ', '.join(str(d) for d in self.devices), self.process_count)
+
+    # -- collectives ----------------------------------------------------
+
+    def all_reduce(self, t, op='sum'):
+        """Reduce ``t`` (on the lead device) in place over the processes;
+        no-op for a single process. Returns ``t``."""
+        if self.spans_processes:
+            import torch.distributed as dist
+            ops = {'sum': dist.ReduceOp.SUM, 'max': dist.ReduceOp.MAX}
+            dist.all_reduce(t, op=ops[op], group=self.group)
+        return t
+
+    def all_gather(self, t, dim=0):
+        """Concatenate ``t`` of every process along ``dim``, in process
+        order (every process passes the same shape); ``t`` itself for a
+        single process."""
+        if not self.spans_processes:
+            return t
+        import torch.distributed as dist
+        t = t.contiguous()
+        parts = [torch.empty_like(t) for _ in range(self.process_count)]
+        dist.all_gather(parts, t, group=self.group)
+        return torch.cat(parts, dim=dim)
+
+    def reduce(self, tensors, op='sum'):
+        """Reduce one same-shaped tensor per local shard: over the local
+        shards with torch ops on the lead device (keeping the dtype),
+        then over the processes."""
+        stacked = torch.stack([t.to(self.lead) for t in tensors])
+        if op == 'sum':
+            out = stacked.sum(0, dtype=stacked.dtype)
+        elif op == 'max':
+            out = stacked.amax(0)
+        else:
+            raise ValueError('op must be sum or max, got %r' % (op,))
+        return self.all_reduce(out, op)
+
+
+def initialize_distributed(**kwargs):
+    """Join this process to a multi-process job:
+    ``torch.distributed.init_process_group(**kwargs)`` (for example
+    ``backend='nccl', init_method='tcp://host:port', world_size=4,
+    rank=r``), then :func:`install_abort_excepthook`. A second call in an
+    initialized process does nothing; a failed bootstrap raises, since N
+    processes that each believed they were rank 0 of a 1-process world
+    would race to write the same output files."""
+    import torch.distributed as dist
+    if not dist.is_initialized():
+        try:
+            dist.init_process_group(**kwargs)
+        except (RuntimeError, ValueError) as e:
+            # a double init by another thread is the one benign failure
+            if not dist.is_initialized() or \
+                    ('already' not in str(e) and 'twice' not in str(e)):
+                raise
+    install_abort_excepthook()
+
+
+def install_abort_excepthook():
+    """Make an uncaught exception on one process end the whole job
+    instead of leaving the others waiting inside a collective: the hook
+    prints the traceback, destroys the process group and hard-exits.
+    No-op for a single process."""
+    import sys
+
+    if _world_group() is None:
+        return
+    original = sys.excepthook
+
+    def _abort_hook(exc_type, value, tb):
+        original(exc_type, value, tb)
+        try:
+            import torch.distributed as dist
+            dist.destroy_process_group()
+        except Exception:
+            pass
+        os._exit(1)
+
+    sys.excepthook = _abort_hook
+
+
+def n_devices():
+    """Visible CUDA devices."""
+    return torch.cuda.device_count()
+
+
+def frame_mesh(n=None, devices=None):
+    """A mesh of ``devices``, or of the first ``n`` visible CUDA devices
+    (default: all), as the JAX package takes the first ``n`` of
+    ``jax.devices()``. Under ``$ENSPARA_TPU_PLATFORM=cpu`` it holds ``n``
+    (default 1) CPU shards. Without a card (and no such setting) it
+    raises. The default process group joins it when it spans more than
+    one process."""
+    if devices is None:
+        from ..util.backend import select_device
+        dev = select_device()
+        if dev.type == 'cuda':
+            count = n_devices()
+            n = count if n is None else int(n)
+            if not 1 <= n <= count:
+                raise ValueError('frame_mesh(n=%d): %d CUDA device(s) '
+                                 'visible' % (n, count))
+            devices = [torch.device('cuda', k) for k in range(n)]
+        else:
+            devices = [dev] * (1 if n is None else int(n))
+    return FrameMesh(devices, _world_group())
+
+
+def single_shard_device(mesh, device, what):
+    """Where ``what``, which does not run over shards yet, runs:
+    ``device`` without a mesh, the device of a one-shard mesh. A mesh of
+    more shards raises ``NotImplementedError``."""
+    if mesh is None:
+        return device
+    if mesh.size > 1:
+        raise NotImplementedError(
+            '%s over a mesh of %d shards: the PAM sweeps over shards are '
+            'still to port (ROADMAP.md queue 1 step 11)' % (what, mesh.size))
+    if device is not None:
+        raise ValueError('pass device= or mesh=, not both')
+    return mesh.devices[0]
+
+
+def pad_to_multiple(n, m):
+    """Smallest multiple of ``m`` that is >= ``n``."""
+    return ((n + m - 1) // m) * m
+
+
+def _pad_rows(arr, n_pad, pad_value):
+    n = arr.shape[0]
+    if n_pad == n:
+        return arr
+    if isinstance(arr, torch.Tensor):
+        pad = torch.full((n_pad - n,) + tuple(arr.shape[1:]), pad_value,
+                         dtype=arr.dtype, device=arr.device)
+        return torch.cat([arr, pad])
+    pad = np.full((n_pad - n,) + arr.shape[1:], pad_value, dtype=arr.dtype)
+    return np.concatenate([arr, pad])
+
+
+def shard_frames(arr, mesh=None, pad_value=0):
+    """Pad the leading axis to a multiple of the mesh size and cut it
+    into contiguous blocks, one per shard. Returns ``(shards, n)``:
+    this process's blocks as tensors on their devices, and the real
+    row count."""
+    if mesh is None:
+        mesh = frame_mesh()
+    if not isinstance(arr, torch.Tensor):
+        arr = np.asarray(arr)
+    n = arr.shape[0]
+    n_pad = pad_to_multiple(max(n, mesh.size), mesh.size)
+    arr = _pad_rows(arr, n_pad, pad_value)
+    n_local = n_pad // mesh.size
+    shards = []
+    for s, dev in enumerate(mesh.devices):
+        lo = (mesh.first_shard + s) * n_local
+        shards.append(torch.as_tensor(arr[lo:lo + n_local], device=dev))
+    return shards, n
+
+
+def replicated(arr, mesh=None):
+    """``arr`` on every local shard's device: one tensor per shard
+    (read-only; shards on one device share one copy)."""
+    if mesh is None:
+        mesh = frame_mesh()
+    if not isinstance(arr, torch.Tensor):
+        arr = np.asarray(arr)
+    copies = {d: torch.as_tensor(arr, device=d) for d in set(mesh.devices)}
+    return [copies[d] for d in mesh.devices]
+
+
+def host_fetch(x, mesh=None, axis=0):
+    """A host (numpy) copy of ``x`` on every process.
+
+    ``x`` is a tensor holding the same value on every process (a
+    replicated result), or a sequence of this process's per-shard
+    tensors, which are joined along ``axis`` and, when ``mesh`` spans
+    processes, gathered from every process in shard order (the
+    counterpart of the JAX package's ``process_allgather``)."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    if mesh is None or not mesh.spans_processes:
+        return np.concatenate([t.detach().cpu().numpy() for t in x],
+                              axis=axis)
+    local = torch.cat([t.detach().to(mesh.lead) for t in x], dim=axis)
+    return mesh.all_gather(local, dim=axis).cpu().numpy()

@@ -96,7 +96,9 @@ def test_main_path_imports_no_jax():
         '       or m.startswith("enspara_tpu.")\n'
         '       or m.split(".")[0] in ("jax", "sklearn", "psutil")]\n'
         'assert not bad, bad\n'
-        'assert "enspara_tpu_torch.msm.eigen_device" in sys.modules\n')
+        'for name in ("msm.eigen_device", "parallel.mesh", "parallel.ops",\n'
+        '             "parallel.io", "ops.qcp_update"):\n'
+        '    assert "enspara_tpu_torch." + name in sys.modules, name\n')
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, '-c', code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
