@@ -15,10 +15,13 @@ each, in parallel) from the checkout and drives four paths:
      prepare_rmsd_frames -> kcenters_device_fused to 1000 centers ->
      lag-10 counts -> transpose-builder top-21 eigenpairs, each checked
      (exact counts against numpy, eigenvalues within 1e-4 of a float64
-     host solve);
+     host solve); then the clustering again with tri_skip=False (kernel
+     2, the twin that skips nothing), bit for bit the same;
 4.   the all-pairs QCP kernel against its plain version at the shapes
      its path gives it (a 1M x 256-center assignment block, a 131,072 x
-     64 PAM proposal block, a 1,000 x 37 x 61-atom padding shape);
+     64 PAM proposal block, a 1,000 x 37 x 61-atom padding shape), then
+     on self pairs (centers that are frames: the msd near 0, no argmin
+     flip);
 5.   the cluster -> reassign workflow through the port's apps: 100 XTC
      trajectories x 10,000 frames of 64 CA atoms (metastable-basin
      data, seed 1) clustered with --algorithm khybrid --cluster-number
@@ -29,7 +32,8 @@ each, in parallel) from the checkout and drives four paths:
 6.   the ELL SpMM kernel against its plain version, bit for bit, at the
      shapes its path gives it (the bucketed ELL of the 100,000-state
      scale point's S with 64 and 128 columns, and an odd 1,000 x 5 x 21
-     shape), timed beside torch.sparse.mm of the same CSR matrix;
+     shape), timed beside torch.sparse.mm of the same CSR matrix, with
+     its nonzero slots and achieved bytes/s;
 7.   the large-MSM eigensolve through the port's entry points: the
      scale point of benchmarks/scale_points.py (100,000 states,
      sparse_metastable_counts with 25 wells, seed 11) through
@@ -109,6 +113,7 @@ CHECK_FRAMES, CHECK_CENTERS = 65_536, 128
 TIMED_ITERS = 64
 SOURCE = 'enspara_tpu_torch/csrc/kcenters_step.cu'
 REPLACES = 'enspara_tpu/ops/kcenters_skip_pallas.py:274'
+NOSKIP_REPLACES = 'enspara_tpu/ops/kcenters_chunk_pallas.py:191'
 # the module, which the package's hybrid() function shadows as an attribute
 hybrid_mod = importlib.import_module('enspara_tpu_torch.cluster.hybrid')
 QCP_SOURCE = 'enspara_tpu_torch/csrc/qcp_matrix.cu'
@@ -141,8 +146,18 @@ ITER_TIMED = 50
 # phase 9's profiled window: runs of this many centers and twice as many
 CHUNK_CENTERS = 64
 # one H100 SXM at 700 W (NVIDIA's data sheet): HBM bytes/s, fp32 flop/s
-# outside the tensor cores
-HBM_RATE, FP32_RATE = 3.35e12, 67e12
+# outside the tensor cores, dense TF32 flop/s of the tensor cores
+HBM_RATE, FP32_RATE, TF32_RATE = 3.35e12, 67e12, 495e12
+# fp32 operations of the QCP epilogue a pair (csrc/qcp_rmsd.cuh): each
+# add, subtract, multiply, divide, sqrt, min, max, abs and compare-select
+# one, an FMA two. Squares 9; fnorm2 8; det 14; C2, C1 2; the eight sums
+# and differences 8; D 4; e1 4; e2 4; E 3; F, G, H, I 9 each (36); C0 5;
+# lam0 1; inv (max, divide) 2; inv2 1; c2, c1, c0 5; 12 Newton steps of
+# 18 (u2 1, p 6, dp 5, den 2, step 3, u 1) = 216; clamp 2; msd and sqrt
+# 6: 330 in all
+QCP_EPILOGUE_OPS = 330
+# phase 4's self-pair block (frames, centers, atoms)
+QCP_SELF = (131_072, 64, 64)
 
 
 def check(ok, what):
@@ -404,6 +419,49 @@ def qcp_shape(device, F, C, A, seed):
     return max_abs_err, ms, plain_ms, line
 
 
+def qcp_self_pairs(device, F, C, A, seed):
+    """Kernel 5 on self pairs: F centered frames, each a copy of one of C
+    random structures plus noise 0.01, and as centers the first C frames
+    themselves, so a center's own frame has msd ``gsum - 2 lambda`` that
+    cancels to near 0. Every entry within the msd bar of the plain
+    version, no argmin flip, each center frame within the bar's floor of
+    0 and its argmin its own center. Returns a line."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    base = torch.randn((C, A, 3), generator=gen, device=device)
+    X = base[torch.arange(F, device=device) % C] \
+        + 0.01 * torch.randn((F, A, 3), generator=gen, device=device)
+    X = X - X.mean(dim=1, keepdim=True)
+    a_pad = -(-A // 8) * 8
+    fr, gf = qcp_matrix.to_layout(X, qcp_matrix.pad_frames(F), a_pad)
+    cr, gc = qcp_matrix.to_layout(X[:C], qcp_matrix.pad_centers(C), a_pad)
+    del X, base
+    n0 = qcp_matrix.qcp_rmsd_matrix_kernel.n_launches
+    k = qcp_matrix.qcp_rmsd_matrix_kernel(fr, gf, cr, gc, A)
+    torch.cuda.synchronize()
+    check(qcp_matrix.qcp_rmsd_matrix_kernel.n_launches == n0 + 1,
+          'qcp launch count did not grow by 1')
+    p = qcp_matrix.qcp_rmsd_matrix_plain(fr, gf, cr, gc, A)
+    k, p = k[:F, :C].double(), p[:F, :C].double()
+    bar = bar_from(2 * float(max(gf.max(), gc.max())), A)
+    check(bool(torch.isfinite(k).all()), 'self pairs: non-finite values')
+    check(bool(((k * k - p * p).abs() <= bar(p)).all()),
+          'self pairs: kernel outside the msd bar')
+    own = k.diagonal()
+    check(bool((own * own <= bar(0.0)).all()),
+          'self pairs: a center frame lies %g from its own center'
+          % float(own.max()))
+    flips = int((k.argmin(dim=1) != p.argmin(dim=1)).sum())
+    check(flips == 0, 'self pairs: %d argmin flips' % flips)
+    ids = torch.arange(F, device=device) % C
+    check(bool((k.argmin(dim=1) == ids).all()),
+          'self pairs: a frame took another center than its own')
+    return ('%d x %d x %d self pairs: within the msd bar, 0 argmin flips; '
+            'center frames at most %.3g from their own center (msd floor '
+            '%.3g), plain %.3g; max |kernel - plain| %.3g'
+            % (F, C, A, float(own.max()), bar(0.0), float(p.diagonal().max()),
+               float((k - p).abs().max())))
+
+
 def write_trajectories(d):
     """The phase-5 data set under ``d``: a PDB of 64 CA atoms and
     N_TRJ XTC trajectories of TRJ_FRAMES basin frames each (seed 1,
@@ -582,6 +640,24 @@ def bound(n_bytes, n_ops):
             'bytes' if t_bytes >= t_ops else 'operations')
 
 
+def qcp_bound(F, C, A):
+    """Kernel 5's bound at an (F, C, A) block, ``(bound_ms, bound_by,
+    term)``: the bytes (frames, centers and their G read once, the block
+    written once) at the HBM rate; the nine contractions, 18 * A_pad
+    flops a pair, at the TF32 tensor rate (the three passes of 3xTF32
+    belong to the design, not to the function); the epilogue's
+    QCP_EPILOGUE_OPS a pair at the fp32 rate."""
+    fp, cp, ap = (qcp_matrix.pad_frames(F), qcp_matrix.pad_centers(C),
+                  -(-A // 8) * 8)
+    terms = {'bytes': 4 * (3 * ap * (fp + cp) + fp + cp + fp * cp)
+             / HBM_RATE,
+             'contraction, TF32': 18 * ap * fp * cp / TF32_RATE,
+             'epilogue, fp32': QCP_EPILOGUE_OPS * fp * cp / FP32_RATE}
+    term = max(terms, key=terms.get)
+    return (1e3 * terms[term], 'bytes' if term == 'bytes' else
+            'operations', term)
+
+
 def reps_ms(fn, reps):
     """Device time of one call of ``fn`` in ms: CUDA events around
     ``reps`` calls."""
@@ -678,13 +754,16 @@ def ell_shape(device, cols_h, vals_h, k, seed, what):
     check(ell_spmm_kernel.n_launches == n1 + 2 * reps['kernel'],
           'ell_spmm launch count did not grow by the launches made')
     ms, plain_ms = min(times[1:3]), min(times[0], times[3])
-    bound_ms, bound_by = bound(4 * (2 * n * w + 2 * n * k),
-                               2 * csr.nnz * k)
+    n_bytes = 4 * (2 * n * w + 2 * n * k)
+    bound_ms, bound_by = bound(n_bytes, 2 * csr.nnz * k)
+    slots = int(np.count_nonzero(vals_h))
     line = ('%s: n %d, w %d, k %d, nnz %d: kernel equal to plain bit for '
-            'bit (shift 0 and 0.25); ms per product kernel %.4f, plain '
-            '%.4f, torch.sparse.mm %.4f, bound %.4f (%s) (turns plain, '
-            'kernel, kernel, plain: %s)'
-            % (what, n, w, k, csr.nnz, ms, plain_ms, lib_ms, bound_ms,
+            'bit (shift 0 and 0.25); nonzero slots %d of n*w %d (%.1f%%); '
+            'ms per product kernel %.4f (%.4g bytes/s of the bound\'s '
+            'bytes), plain %.4f, torch.sparse.mm %.4f, bound %.4f (%s) '
+            '(turns plain, kernel, kernel, plain: %s)'
+            % (what, n, w, k, csr.nnz, slots, n * w, 100.0 * slots / (n * w),
+               ms, n_bytes / (ms * 1e-3), plain_ms, lib_ms, bound_ms,
                bound_by, ', '.join('%.4f' % t for t in times)))
     return {'max_abs_err': max_abs_err, 'ms': ms, 'plain_ms': plain_ms,
             'bound_ms': bound_ms, 'bound_by': bound_by,
@@ -1074,6 +1153,12 @@ def loop_profile(X, mesh, card):
     the share of it the card is idle."""
     from torch.profiler import ProfilerActivity, profile
     prep = engine.prepare_rmsd_frames(X, mesh=mesh)
+    # one profiled run first: the profiler's first window costs extra
+    # host time, which made the shorter run the slower one
+    with profile(activities=[ProfilerActivity.CUDA]):
+        engine.kcenters_device_fused(prep, n_clusters=CHUNK_CENTERS,
+                                     mesh=mesh)
+        torch.cuda.synchronize()
     runs = {}
     for k in (CHUNK_CENTERS, 2 * CHUNK_CENTERS):
         engine.kcenters_device_fused(prep, n_clusters=k, mesh=mesh)
@@ -1100,6 +1185,12 @@ def loop_profile(X, mesh, card):
     if per[2] <= 0:
         print('[%s] sharded loop profile: the profiler saw no device time '
               '(not measured)' % card, flush=True)
+        return
+    if per[0] < per[2] + per[4]:
+        print('[%s] sharded loop profile: wall %.4f ms an iteration below '
+              'its device time %.4f ms, the two runs\' host times too noisy '
+              '(idle share not measured)' % (card, per[0], per[2] + per[4]),
+              flush=True)
         return
     print('[%s] sharded loop per iteration (torch.profiler, %d-center '
           'runs minus %d-center runs): wall %.4f ms; kernel 4 %.2f launches, '
@@ -1330,6 +1421,17 @@ def main():
     check(vals.shape == (N_EIGS,) and eig_err < 1e-4,
           'eigenvalues differ by %g' % eig_err)
     check(pi_err < 1e-5, 'equilibrium populations differ by %g' % pi_err)
+    # kernel 2's path: the same clustering with tri_skip=False
+    reset_launches()
+    t = time.perf_counter()
+    off = engine.kcenters_device_fused(prep, n_clusters=N_CLUSTERS,
+                                       tri_skip=False)
+    t_off = time.perf_counter() - t
+    noskip_launches = kcenters_chunk.n_launches
+    check(noskip_launches >= N_CLUSTERS, 'tri_skip=False: only %d kernel '
+          'launches' % noskip_launches)
+    check(all(np.array_equal(x, y) for x, y in zip(off, res)),
+          'tri_skip=False differs from tri_skip=True on one device')
     print('main path: %d frames x %d atoms -> %d centers (%d kernel '
           'launches), max distance %.6f; lag-%d counts equal numpy; top-%d '
           'eigenvalues within %.2e of float64 numpy, pi within %.2e'
@@ -1337,26 +1439,42 @@ def main():
              res.distances.max(), LAG, N_EIGS, eig_err, pi_err))
     print('[%s] prepare %.4f s; cluster %.4f s (%.4g pairs/s), counts '
           '%.4f s, eigsolve %.4f s, north-star %.4f s (cluster + counts + '
-          'eigsolve)' % (card, t_prep, t_cl, N_FRAMES * N_CLUSTERS / t_cl,
-                         t_co, t_eig, t_cl + t_co + t_eig), flush=True)
+          'eigsolve); cluster with tri_skip=False %.4f s (%d launches), '
+          'bit for bit the same' % (card, t_prep, t_cl,
+                                    N_FRAMES * N_CLUSTERS / t_cl, t_co,
+                                    t_eig, t_cl + t_co + t_eig, t_off,
+                                    noskip_launches), flush=True)
 
     # -- 3. the kernel and its plain version at the main path's shapes -----
     start = fresh_state(prep)
-    one_k = run_chunk(kcenters_chunk, prep, clone(start), 1)
-    one_p = run_chunk(kcenters_chunk_plain, prep, clone(start), 1)
-    fin = np.isfinite(one_p[0])
-    max_abs_err = float(np.abs(one_k[0][fin] - one_p[0][fin]).max())
-    check(rmsd_close(one_k[0], one_p[0], msd_bar(prep)),
-          'one iteration at full size: distances outside the msd bar')
-    times = {'kernel': [], 'plain': []}
+
+    def noskip(prep, state, n_iters):
+        return kcenters_chunk(prep, state, n_iters, skip=False)
+    fns = {'plain': kcenters_chunk_plain, 'kernel': kcenters_chunk,
+           'noskip': noskip}
+    one = {name: run_chunk(fn, prep, clone(start), 1)
+           for name, fn in fns.items()}
+    fin = np.isfinite(one['plain'][0])
+    err = {}
+    for name in ('kernel', 'noskip'):
+        err[name] = float(np.abs(one[name][0][fin]
+                                 - one['plain'][0][fin]).max())
+        check(rmsd_close(one[name][0], one['plain'][0], msd_bar(prep)),
+              'one iteration at full size (%s): distances outside the msd '
+              'bar' % name)
+    max_abs_err = err['kernel']
+    times = {name: [] for name in fns}
     outs = {}
-    for name in ('plain', 'kernel', 'kernel', 'plain'):
-        fn = kcenters_chunk if name == 'kernel' else kcenters_chunk_plain
-        ms, outs[name] = timed_chunk(fn, prep, start, TIMED_ITERS)
+    turns = ('plain', 'kernel', 'noskip', 'noskip', 'kernel', 'plain')
+    for name in turns:
+        ms, outs[name] = timed_chunk(fns[name], prep, start, TIMED_ITERS)
         times[name].append(ms)
     print(compare_chunks(prep, start, outs['kernel'], outs['plain'],
                          TIMED_ITERS, '%d x %d x %d kernel vs plain'
                          % (N_FRAMES, N_ATOMS, TIMED_ITERS)))
+    check(all(np.array_equal(x, y)
+              for x, y in zip(outs['noskip'], outs['kernel'])),
+          'skip=False differs from skip=True at full size')
     ms, plain_ms = min(times['kernel']), min(times['plain'])
     # per iteration: the frames of the tiles not skipped, G, and dist and
     # assig read and written; 9 * A_pad fp32 FMAs per frame
@@ -1365,16 +1483,25 @@ def main():
     visited = 1.0 - skc[skc > 0].sum() / (TIMED_ITERS * (n_pad // prep.tile))
     kc_bound = bound(4 * (rows * n_pad * visited + 5 * n_pad),
                      2 * 3 * rows * n_pad)
-    print('[%s] per iteration at %d x %d: kernel %.4f ms, plain %.4f ms, '
-          'bound %.4f ms (%s) (turns plain, kernel, kernel, plain: %s); '
-          'one-iteration max |kernel - plain| %.3g'
-          % (card, N_FRAMES, N_ATOMS, ms, plain_ms, kc_bound[0],
-             kc_bound[1], ', '.join('%.4f' % t for t in times['plain'][:1]
-                                    + times['kernel'] + times['plain'][1:]),
-             max_abs_err), flush=True)
+    # kernel 2 reads every tile
+    noskip_bound = bound(4 * (rows * n_pad + 5 * n_pad),
+                         2 * 3 * rows * n_pad)
+    noskip_nums = {'max_abs_err': err['noskip'],
+                   'ms': min(times['noskip']), 'plain_ms': plain_ms,
+                   'bound_ms': noskip_bound[0], 'bound_by': noskip_bound[1],
+                   'library_ms': None}
+    print('[%s] per iteration at %d x %d: kernel %.4f ms, skip=False '
+          '%.4f ms, plain %.4f ms, bound %.4f ms (%s), skip=False %.4f ms '
+          '(turns %s: %s); one-iteration max |kernel - plain| %.3g, '
+          'skip=False %.3g; skip=False bit for bit the same'
+          % (card, N_FRAMES, N_ATOMS, ms, noskip_nums['ms'], plain_ms,
+             kc_bound[0], kc_bound[1], noskip_bound[0], ', '.join(turns),
+             ', '.join('%.4f' % times[n][turns[:i].count(n)]
+                       for i, n in enumerate(turns)),
+             max_abs_err, err['noskip']), flush=True)
 
     single, t_single = res, t_cl
-    del frames, prep, res, counts, start, outs
+    del frames, prep, res, counts, start, outs, off, one
     torch.cuda.empty_cache()
 
     # -- 4. the all-pairs QCP kernel and its plain version -----------------
@@ -1382,17 +1509,17 @@ def main():
     for i, (F, C, A) in enumerate(QCP_SHAPES):
         err, k_ms, p_ms, line = qcp_shape(device, F, C, A, seed=i)
         print('[%s] %s' % (card, line), flush=True)
+        b = qcp_bound(F, C, A)
+        print('[%s] bound of the %d x %d x %d block: %.4f ms (%s: %s), '
+              'kernel at %.1f%% of it' % ((card, F, C, A) + b
+                                          + (100 * b[0] / k_ms,)),
+              flush=True)
         if i == 0:
-            qcp_err, qcp_ms, qcp_plain_ms = err, k_ms, p_ms
-            # frames, centers and their G read once, the block written
-            # once; 9 * A_pad fp32 FMAs per pair
-            fp, cp, ap = (qcp_matrix.pad_frames(F), qcp_matrix.pad_centers(C),
-                          -(-A // 8) * 8)
-            qcp_bound = bound(4 * (3 * ap * (fp + cp) + fp + cp + fp * cp),
-                              2 * 9 * ap * fp * cp)
-            print('[%s] bound of the %d x %d x %d block: %.4f ms (%s)'
-                  % ((card, F, C, A) + qcp_bound), flush=True)
+            qcp_err, qcp_ms, qcp_plain_ms, qcp_b = err, k_ms, p_ms, b
         torch.cuda.empty_cache()
+    print(qcp_self_pairs(device, *QCP_SELF, seed=len(QCP_SHAPES)),
+          flush=True)
+    torch.cuda.empty_cache()
 
     # -- 5. cluster -> reassign through the apps at full size --------------
     path = reassign_path(device, card)
@@ -1429,13 +1556,14 @@ def main():
     # -- 9. the sharded path at full size ----------------------------------
     sharded = sharded_path(device, frames, single, t_single, card)
     del frames
-    print('launches: north star kcenters_step %d; cluster -> reassign '
-          'kcenters_step %d, qcp_matrix %d; scale-point eigensolve ell_spmm '
-          '%d; implied timescales ell_spmm %d; sharded path '
-          'kcenters_iteration_skip %d; tri_skip=False qcp_update %d'
-          % (launches, path['kcenters_step'], path['qcp_matrix'],
-             ell_launches, its_launches, sharded['kcenters_iteration_skip'],
-             sharded['qcp_update']))
+    print('launches: north star kcenters_step %d; north star tri_skip=False '
+          'kcenters_step_noskip %d; cluster -> reassign kcenters_step %d, '
+          'qcp_matrix %d; scale-point eigensolve ell_spmm %d; implied '
+          'timescales ell_spmm %d; sharded path kcenters_iteration_skip %d; '
+          'tri_skip=False qcp_update %d'
+          % (launches, noskip_launches, path['kcenters_step'],
+             path['qcp_matrix'], ell_launches, its_launches,
+             sharded['kcenters_iteration_skip'], sharded['qcp_update']))
 
     print(json.dumps({'kernels': [{
         'name': 'kcenters_step', 'route': 'cuda', 'source': SOURCE,
@@ -1443,10 +1571,13 @@ def main():
         'max_abs_err': max_abs_err, 'ms': ms, 'plain_ms': plain_ms,
         'bound_ms': kc_bound[0], 'bound_by': kc_bound[1],
         'library_ms': None}, {
+        'name': 'kcenters_step_noskip', 'route': 'cuda', 'source': SOURCE,
+        'replaces': NOSKIP_REPLACES, 'launches': noskip_launches,
+        **noskip_nums}, {
         'name': 'qcp_matrix', 'route': 'cuda', 'source': QCP_SOURCE,
         'replaces': QCP_REPLACES, 'launches': path['qcp_matrix'],
         'max_abs_err': qcp_err, 'ms': qcp_ms, 'plain_ms': qcp_plain_ms,
-        'bound_ms': qcp_bound[0], 'bound_by': qcp_bound[1],
+        'bound_ms': qcp_b[0], 'bound_by': qcp_b[1],
         'library_ms': None}, {
         'name': 'ell_spmm', 'route': 'cuda', 'source': ELL_SOURCE,
         'replaces': ELL_REPLACES, 'launches': ell_launches, **ell}, {

@@ -180,17 +180,18 @@ def _prepared(X, tile, device, mesh):
 
 
 def _kcenters_loop(prep, dist, assig, n_start, n_clusters, dist_cutoff,
-                   k_max):
+                   k_max, skip=True):
     """Chunked k-centers from the (1, n_pad) ``dist``/``assig`` state
-    (updated in place). Returns ``(ctr (k_max,), n_found)``; ``ctr``
-    holds -1 in the warm-start slots."""
+    (updated in place), with tile skipping or (``skip=False``) without.
+    Returns ``(ctr (k_max,), n_found)``; ``ctr`` holds -1 in the
+    warm-start slots."""
     G = int(min(CHUNK, k_max))
     state = start_state(dist, assig, prep.frames_r.shape[0], prep.tile,
                         n_start, n_clusters, dist_cutoff)
     ctr = torch.full((k_max + G,), -1, dtype=torch.int32, device=dist.device)
     _, md, i = state.scalars()
     while i < n_clusters and md > dist_cutoff:
-        ctr[i:i + G] = kcenters_chunk(prep, state, G)[0]
+        ctr[i:i + G] = kcenters_chunk(prep, state, G, skip=skip)[0]
         _, md, i = state.scalars()
     return ctr[:k_max], i
 
@@ -340,11 +341,11 @@ def kcenters_device_fused(X, n_clusters=None, dist_cutoff=None,
     ``<= dist_cutoff``. A warm start passes the previous run's
     ``init_distances``/``init_assignments`` with ``n_init_centers``
     (and optionally ``init_center_indices``). On one CUDA device the
-    loop runs the tri-skip chunk kernel; over several shards, the
-    sharded loop with the one-iteration tri-skip kernel, or with
-    ``tri_skip=False`` the one-iteration kernel that skips nothing (the
-    results are the same). On the CPU each kernel takes its plain
-    version.
+    loop runs the tri-skip chunk kernel, or with ``tri_skip=False`` its
+    twin that skips nothing; over several shards, the sharded loop with
+    the one-iteration tri-skip kernel, or with ``tri_skip=False`` the
+    one-iteration kernel that skips nothing. The results are the same
+    either way. On the CPU each kernel takes its plain version.
 
     Returns a :class:`KCentersDeviceResult` of host arrays (on every
     process of a mesh that spans processes).
@@ -389,7 +390,7 @@ def kcenters_device_fused(X, n_clusters=None, dist_cutoff=None,
         assig_t = torch.from_numpy(assig).to(dev)
         ctr, n_found = _kcenters_loop(prep, dist_t, assig_t,
                                       int(n_init_centers), n_clusters_eff,
-                                      cutoff_eff, k_max)
+                                      cutoff_eff, k_max, skip=tri_skip)
         dists = dist_t[0, :n].cpu().numpy()
         assigs = assig_t[0, :n].cpu().numpy()
     ctr_inds = ctr[:n_found].cpu().numpy().astype(np.int64)

@@ -9,7 +9,10 @@ hold 0. ``X`` is (n, k) float32, row-major. Both versions compute
 ``acc = shift * x`` (or 0 when ``shift`` is 0), then
 ``acc = acc + vals[i, j] * X[cols[i, j]]`` for j = 0 .. w-1, each
 product and each sum rounded to float32 on its own (no fused
-multiply-add), so the kernel equals the plain version bit for bit.
+multiply-add). The kernel skips the slots whose value is 0, which adds
++-0 for finite X, so the two are equal under ``torch.equal``; a NaN or
+inf in an X row reached only through a zero slot makes NaN in the plain
+version and nothing in the kernel.
 
 :func:`ell_spmm_kernel` launches ``csrc/ell_spmm.cu`` on CUDA tensors;
 :func:`ell_spmm_plain` is the plain PyTorch version, the loop of the
@@ -65,27 +68,28 @@ def _kernel():
     p = ctypes.c_void_p
     lib.ell_spmm.argtypes = [p, p, p, p, ctypes.c_longlong, ctypes.c_int,
                              ctypes.c_int, ctypes.c_float, ctypes.c_int,
-                             ctypes.c_int, p]
+                             ctypes.c_int, ctypes.c_int, p]
     lib.ell_spmm.restype = ctypes.c_int
     lib.ell_spmm_error_string.argtypes = [ctypes.c_int]
     lib.ell_spmm_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _vector_width(k, *tensors):
-    """Columns a lane loads at once: 4 (float4) when k is a multiple of
-    128, 2 when a multiple of 64, else 1, so that for the solver's
-    widths every lane of a row's warp is busy; less when a pointer is
-    not aligned to it."""
-    vec = 4 if k % 128 == 0 else 2 if k % 64 == 0 else 1
+def _lane_layout(k, *tensors):
+    """``(vec, group)``: the columns a lane loads at once, 4 (float4)
+    when k is a multiple of 4, else 2 or 1, less when a pointer is not
+    aligned to it; and the lanes that serve a row, 16 when the row is
+    at most 16 vectors wide (a half-warp a row at k = 64), else 32."""
+    vec = 4 if k % 4 == 0 else 2 if k % 2 == 0 else 1
     while vec > 1 and any(t.data_ptr() % (4 * vec) for t in tensors):
         vec //= 2
-    return vec
+    return vec, 16 if k // vec <= 16 else 32
 
 
 def ell_spmm_kernel(cols, vals, X, shift=0.0):
     """``A @ X + shift * X`` by ``csrc/ell_spmm.cu``: one launch on the
-    current stream, one warp per row. CUDA tensors only; raises if the
+    current stream, a warp or a half-warp per row, gathering only the
+    slots whose value is not 0. CUDA tensors only; raises if the
     build or the launch fails. A column index outside ``[0, n)`` traps
     the kernel, which the next synchronisation reports as an error."""
     _check(cols, vals, X)
@@ -99,7 +103,7 @@ def ell_spmm_kernel(cols, vals, X, shift=0.0):
     if n == 0 or k == 0:
         return Y
     lib = _kernel()
-    vec = _vector_width(k, X, Y)
+    vec, group = _lane_layout(k, X, Y)
 
     def ptr(t):
         return ctypes.c_void_p(t.data_ptr())
@@ -107,7 +111,7 @@ def ell_spmm_kernel(cols, vals, X, shift=0.0):
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.ell_spmm(ptr(cols), ptr(vals), ptr(X), ptr(Y), n, w, k,
-                           float(shift), int(bool(shift)), vec,
+                           float(shift), int(bool(shift)), vec, group,
                            ctypes.c_void_p(stream))
     if err:
         raise RuntimeError('ell_spmm launch failed: %s (cudaError %d)'

@@ -36,7 +36,8 @@ TILE_F = 256
 TILE_C = 256
 NARROW_C = 64
 
-# the CUDA kernel's block is 64 x 64 pairs
+# F and C multiples of this (the CUDA kernel's tiles are 64 frames x 32
+# centers)
 _KERNEL_TILE = 64
 # pairs per pass of the plain version: bounds its (3, 3, F, C) S tensor
 _PLAIN_PAIRS = 1 << 24
@@ -136,8 +137,9 @@ def _kernel():
 
 def qcp_rmsd_matrix_kernel(frames_r, g_f, centers_r, g_c, n_atoms_real):
     """``(F, C)`` float32 RMSD block by ``csrc/qcp_matrix.cu``: one
-    launch on the current stream. CUDA tensors only; raises if the
-    build or the launch fails."""
+    launch on the current stream, the contraction in 3xTF32 on the
+    tensor cores. CUDA tensors only; raises if the build or the launch
+    fails."""
     _check(frames_r, g_f, centers_r, g_c)
     device = frames_r.device
     if device.type != 'cuda':

@@ -234,6 +234,8 @@ counts = assigns_to_counts_sharded(res.assignments.reshape(5, -1),
 np.save(os.path.join(datadir, 'counts%d.npy' % rank), counts.numpy())
 dist.barrier()
 print('WORKER %d ALL_OK' % rank, flush=True)
+# a group left alive at exit can abort the process as gloo's threads die
+dist.destroy_process_group()
 '''
 
 

@@ -81,8 +81,8 @@ def _state(prep, n_total, cutoff=0.0):
 
 
 def test_main_path_imports_no_jax():
-    """Importing every module of the port, and what chip_smoke.py
-    imports, brings in neither the JAX package nor jax, sklearn or
+    """Importing every module of the port, and what chip_smoke.py and
+    chip_ablate_qcp.py import, brings in neither the JAX package nor jax, sklearn or
     psutil. A subprocess, because the test session itself has imported
     them."""
     code = (
@@ -91,7 +91,7 @@ def test_main_path_imports_no_jax():
         'for m in pkgutil.walk_packages(enspara_tpu_torch.__path__,\n'
         '                               "enspara_tpu_torch."):\n'
         '    importlib.import_module(m.name)\n'
-        'import chip_smoke\n'
+        'import chip_smoke, chip_ablate_qcp\n'
         'bad = [m for m in sys.modules if m == "enspara_tpu"\n'
         '       or m.startswith("enspara_tpu.")\n'
         '       or m.split(".")[0] in ("jax", "sklearn", "psutil")]\n'
