@@ -7,7 +7,7 @@ Run from the root of a checkout, with one CUDA card visible:
 
 It builds the four kernel sources (csrc/kcenters_step.cu,
 csrc/qcp_update.cu, csrc/qcp_matrix.cu and csrc/ell_spmm.cu, one nvcc
-each, in parallel) from the checkout and drives four paths:
+each, in parallel) from the checkout and drives these paths:
 
 1-3. the k-centers kernel against its plain PyTorch version on the
      card, and the north-star pipeline at full size through the port's
@@ -55,7 +55,20 @@ each, in parallel) from the checkout and drives four paths:
      -> assign_device(..., mesh=) -> implied_timescales_batched at lags
      1, 2, 5, 10 with and without the mesh, held against phase 2's
      single-device run, tri_skip=False (kernel 3) against tri_skip=True
-     (kernel 4) bit for bit, numpy counts and float64 host eigenvalues.
+     (kernel 4) bit for bit, numpy counts and float64 host eigenvalues;
+10.  the analysis path on phase 5's 1M reassigned labels (1000 states),
+     with none of the six kernels: (a) the implied_timescales CLI's run()
+     with its default flags (48 lags, one batched fp32 solve on the card;
+     exp(-lag/ts) within 1e-4 of a float64 host solve of each lag) and
+     with row_normalize (the host fan-out); (b) MSM at lag 10 with the
+     transpose builder and with builders.mle_device on the card (trimmed,
+     within 5e-4 of the host mle), and a save/load round trip; (c) 10
+     bootstrap MSMs and BACE to 25 macrostates; (d) the device KMC, 1000
+     chains x 10,000 steps (every step an edge of T, frequencies within
+     5 binomial sigma); (e) BASELINE config 4's TPT (a 10,000-state ring
+     with shortcuts): committors and mfpts by the fp32 device LU with
+     fp64 refinement (no stall; within 1e-10 of a host spsolve),
+     net_fluxes and 10 paths equal to those of the float64 host path.
 
 Every time printed was taken on the card's machine (device stages timed
 with CUDA events or to a synchronize, host stages on its host), warm
@@ -69,12 +82,14 @@ data sheet's rates and, for the ELL SpMM, torch.sparse.mm's), the
 nvidia-smi line, and the result line {"ok": true, "device": {...}}.
 """
 
+import contextlib
 import importlib
 import json
 import os
 import subprocess
 import tempfile
 import time
+import warnings
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -83,17 +98,21 @@ import scipy.sparse.linalg
 import torch
 
 from enspara_tpu_torch.apps import cluster as cluster_app
+from enspara_tpu_torch.apps import implied_timescales as its_app
 from enspara_tpu_torch.apps import reassign as reassign_app
 from enspara_tpu_torch.cluster import engine, engine_kmedoids, kcenters
 from enspara_tpu_torch.cluster import util as cluster_util
 from enspara_tpu_torch.convert import result_to_numpy
+from enspara_tpu_torch.exception import ConvergenceWarning
 from enspara_tpu_torch.io import Topology, Trajectory, write_pdb, write_xtc
-from enspara_tpu_torch.msm import (assigns_to_counts_device,
-                                   assigns_to_counts_sharded, builders,
+from enspara_tpu_torch.msm import (MSM, MSMs, assigns_to_counts,
+                                   assigns_to_counts_device,
+                                   assigns_to_counts_sharded, bace, builders,
                                    eigen_device, eigenspectrum_reversible,
                                    implied_timescales_batched,
                                    implied_timescales_device,
                                    sparse_metastable_counts,
+                                   synthetic_trajectory_device,
                                    transpose_timescales_device)
 from enspara_tpu_torch.ops import _build
 from enspara_tpu_torch.ops.ell_spmm import ell_spmm_kernel, ell_spmm_plain
@@ -106,6 +125,9 @@ from enspara_tpu_torch.ops.qcp_update import (kcenters_iteration,
                                               kcenters_iteration_plain)
 from enspara_tpu_torch.parallel import FrameMesh
 from enspara_tpu_torch.ops.qcp import rmsd_from_S_components_unrolled
+from enspara_tpu_torch.ops.sparse import dense_on_device
+from enspara_tpu_torch.tpt import committors, mfpts, net_fluxes, paths
+from enspara_tpu_torch.tpt import core as tpt_core
 from enspara_tpu_torch.util.device import require_cuda
 
 N_FRAMES, N_ATOMS, N_CLUSTERS, LAG, N_EIGS = 1_000_000, 64, 1000, 10, 21
@@ -158,6 +180,18 @@ HBM_RATE, FP32_RATE, TF32_RATE = 3.35e12, 67e12, 495e12
 QCP_EPILOGUE_OPS = 330
 # phase 4's self-pair block (frames, centers, atoms)
 QCP_SELF = (131_072, 64, 64)
+# phase 10, the analysis path on phase 5's labels: the flags of the
+# implied CLI's batched run (its defaults) and of its host run, the MSM
+# lag, bootstrap trials, BACE macrostates and KMC steps; then BASELINE
+# config 4's TPT (benchmarks/reference_configs.py:226-265): states, seed,
+# sources, sinks, paths
+ITS_FLAGS = ('--lag-times', '5:100:2', '--n-eigenvalues', '5',
+             '--symmetrization', 'transpose')
+HOST_ITS_FLAGS = ('--lag-times', '5:100:10', '--n-eigenvalues', '5',
+                  '--symmetrization', 'row_normalize')
+MSM_LAG, BOOT_TRIALS, BACE_STATES, KMC_STEPS = 10, 10, 25, 10_000
+TPT_STATES, TPT_SEED, TPT_SOURCES, TPT_SINKS = 10_000, 3, [0], [5000]
+TPT_PATHS = 10
 
 
 def check(ok, what):
@@ -521,7 +555,8 @@ class Stage:
 def reassign_path(device, card):
     """Phase 5: the cluster -> reassign workflow through the port's
     apps at 1M frames x 64 atoms -> 1000 centers, with its checks.
-    Returns the launches of both kernels in the run."""
+    Returns the launches of both kernels in the run and the reassigned
+    labels (N_TRJ, TRJ_FRAMES)."""
     with tempfile.TemporaryDirectory() as d:
         t = time.perf_counter()
         pdb, trjs, gsum = write_trajectories(d)
@@ -628,7 +663,7 @@ def reassign_path(device, card):
           % (card, t_load, kc.seconds, kc.kc, pam.seconds, syncs, pam.qcp,
              t_write, t_reassign, asg.seconds, pairs / asg.seconds,
              asg.qcp), flush=True)
-    return launches
+    return launches, r_assig
 
 
 def bound(n_bytes, n_ops):
@@ -1351,6 +1386,350 @@ def sharded_path(device, X, single, t_single, card):
     return {'qcp_update': k3_launches, 'kcenters_iteration_skip': k4_launches}
 
 
+@contextlib.contextmanager
+def on_the_host():
+    """Host input runs on the CPU inside (``$ENSPARA_TPU_PLATFORM=cpu``):
+    the float64 host references of phase 10."""
+    old = os.environ.get('ENSPARA_TPU_PLATFORM')
+    os.environ['ENSPARA_TPU_PLATFORM'] = 'cpu'
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ['ENSPARA_TPU_PLATFORM']
+        else:
+            os.environ['ENSPARA_TPU_PLATFORM'] = old
+
+
+def host_transpose_eigs(labels, lag, n_states, k):
+    """The top ``k`` eigenvalues of the transpose builder's T at ``lag``,
+    in float64 on the host: numpy lag-pair counts, ``C + C^T``, and
+    ``eigvalsh`` of its ``D^-1/2 (C + C^T) D^-1/2`` (the symmetrized T)."""
+    pairs = labels[:, :-lag].astype(np.int64) * n_states + labels[:, lag:]
+    C = np.bincount(pairs.ravel(), minlength=n_states ** 2).reshape(
+        n_states, n_states).astype(np.float64)
+    sym = C + C.T
+    mass = sym.sum(axis=1)
+    inv = np.where(mass > 0, 1.0 / np.sqrt(np.where(mass > 0, mass, 1.0)),
+                   0.0)
+    return np.linalg.eigvalsh(inv[:, None] * sym * inv[None, :])[::-1][:k]
+
+
+def dense(M):
+    return M.toarray() if scipy.sparse.issparse(M) else np.asarray(M)
+
+
+def its_cli(labels, card):
+    """Phase 10a: the implied CLI's ``run`` on the labels, once with its
+    default flags (the batched path on the card), once with
+    ``row_normalize`` (the host fan-out); the batched eigenvalues
+    ``exp(-lag / ts)`` within 1e-4 of a float64 host solve of each lag.
+    Returns a summary dict."""
+    n_states = int(labels.max()) + 1
+    argv = ['implied', '--assignments', '(phase 5, in memory)']
+    args = its_app.process_command_line(argv + list(ITS_FLAGS))
+    times = []
+    for _ in range(2):                          # cold, then warm
+        with Stage(its_app, 'implied_timescales_batched') as batched, \
+                Stage(its_app, 'implied_timescales') as fanout:
+            t = time.perf_counter()
+            ts = its_app.run(labels, args)
+            times.append(time.perf_counter() - t)
+        check(batched.calls == 1 and fanout.calls == 0,
+              'the implied CLI took %d batched and %d host runs'
+              % (batched.calls, fanout.calls))
+    lags = np.asarray(args.lag_times, np.float64)
+    k = args.n_eigenvalues
+    check(ts.shape == (len(lags), k) and bool(np.isfinite(ts).all())
+          and bool((ts > 0).all()), 'batched timescales %s, not all finite '
+          'and positive' % (ts.shape,))
+    t = time.perf_counter()
+    ref = np.array([host_transpose_eigs(labels, int(lag), n_states, k + 1)[1:]
+                    for lag in lags])
+    t_ref = time.perf_counter() - t
+    eig_err = float(np.abs(np.exp(-lags[:, None] / ts) - ref).max())
+    check(eig_err < 1e-4, 'batched eigenvalues differ from float64 by %g'
+          % eig_err)
+
+    hargs = its_app.process_command_line(argv + list(HOST_ITS_FLAGS))
+    with Stage(its_app, 'implied_timescales_batched') as batched, \
+            Stage(its_app, 'implied_timescales') as fanout:
+        t = time.perf_counter()
+        ts_h = its_app.run(labels, hargs)
+        t_host = time.perf_counter() - t
+    check(batched.calls == 0 and fanout.calls == 1,
+          'row_normalize took %d batched and %d host runs'
+          % (batched.calls, fanout.calls))
+    check(ts_h.shape == (len(hargs.lag_times), k)
+          and bool(np.isfinite(ts_h[:, 0]).all()),
+          'host-path timescales %s' % (ts_h.shape,))
+    print('implied CLI: %d lags (%s) x %d timescales over %d states by one '
+          'batched solve on the card; eigenvalues within %.3g of float64; '
+          'slowest timescale %.6g at lag %d, %.6g at lag %d; row_normalize '
+          '(%d lags) on the host fan-out'
+          % (len(lags), ITS_FLAGS[1], k, n_states, eig_err, ts[0, 0],
+             lags[0], ts[-1, 0], lags[-1], len(hargs.lag_times)))
+    print('[%s] implied CLI batched %.4f s cold, %.4f s warm; host '
+          'row_normalize %.4f s; float64 host reference %.3f s'
+          % (card, times[0], times[1], t_host, t_ref), flush=True)
+    return {'its_s': times[1], 'its_host_s': t_host, 'its_err': eig_err}
+
+
+def estimator(labels, card):
+    """Phase 10b: ``MSM`` with the transpose builder and with
+    ``builders.mle_device`` (trimmed, on the card) held to the host
+    ``builders.mle`` at atol 5e-4; a save/load round trip, directory and
+    zip. Returns the transpose MSM and a summary dict."""
+    t = time.perf_counter()
+    m = MSM(lag_time=MSM_LAG, method='transpose').fit(labels)
+    t_fit = time.perf_counter() - t
+    check(m.n_states_ == int(labels.max()) + 1 and
+          bool(np.isfinite(m.eq_probs_).all()), 'transpose MSM')
+    with Stage(builders, '_jacobi_mle') as sweeps, \
+            warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter('always')
+        t = time.perf_counter()
+        m_dev = MSM(lag_time=MSM_LAG, method=builders.mle_device,
+                    trim=True).fit(labels)
+        t_dev = time.perf_counter() - t
+    warned = any(issubclass(w.category, ConvergenceWarning) for w in caught)
+    check(sweeps.calls == 1, 'mle_device ran %d sweep loops' % sweeps.calls)
+    n_sweeps = sweeps.result[1]
+    t = time.perf_counter()
+    m_host = MSM(lag_time=MSM_LAG, method='mle', trim=True).fit(labels)
+    t_host = time.perf_counter() - t
+    check(m_dev.mapping_ == m_host.mapping_, 'trim mappings differ')
+    T_err = float(np.abs(dense(m_dev.tprobs_) - dense(m_host.tprobs_)).max())
+    pi_err = float(np.abs(m_dev.eq_probs_ - m_host.eq_probs_).max())
+    check(T_err <= 5e-4 and pi_err <= 5e-4, 'mle_device differs from the '
+          'host mle by %g (T), %g (pi)' % (T_err, pi_err))
+    with tempfile.TemporaryDirectory() as d:
+        t = time.perf_counter()
+        for name, zipped in (('msm', False), ('msm.zip', True)):
+            m.save(os.path.join(d, name), zipfile=zipped)
+            check(MSM.load(os.path.join(d, name)) == m,
+                  'the %s round trip differs' % name)
+        t_io = time.perf_counter() - t
+    print('MSM at lag %d: transpose over %d states; mle_device (trim: %d '
+          'states) %d sweeps%s, within %.3g (T) and %.3g (pi) of the host '
+          'mle; save/load (directory and zip) equal'
+          % (MSM_LAG, m.n_states_, m_dev.n_states_, n_sweeps,
+             ', warned' if warned else ', no warning', T_err, pi_err))
+    print('[%s] MSM transpose fit %.4f s; mle_device fit %.4f s, of which '
+          'the sweeps %.4f s on the card; host mle fit %.4f s; save + load '
+          'twice %.4f s' % (card, t_fit, t_dev, sweeps.seconds, t_host, t_io),
+          flush=True)
+    return m, {'mle_sweeps': n_sweeps, 'mle_warned': warned,
+               'mle_s': t_dev, 'mle_T_err': T_err}
+
+
+def bootstrap_bace(labels, card):
+    """Phase 10c: MSMs(..., n_trials=BOOT_TRIALS, random_state=0) with
+    replicate 0 held to a recount of its rows (fast=False), and BACE of
+    the lag-MSM_LAG counts to BACE_STATES macrostates. Returns a summary
+    dict."""
+    kw = dict(lag_time=MSM_LAG, method='transpose', random_state=0)
+    t = time.perf_counter()
+    msms = MSMs(labels, n_trials=BOOT_TRIALS, **kw)
+    t_boot = time.perf_counter() - t
+    check(len(msms) == BOOT_TRIALS and all(
+        bool(np.isfinite(x.eq_probs_).all()) for x in msms), 'bootstrap')
+    first = MSMs(labels, n_trials=1, fast=False, **kw)[0]
+    mismatch = (scipy.sparse.csr_matrix(first.tcounts_)
+                != scipy.sparse.csr_matrix(msms[0].tcounts_))
+    check(first.tcounts_.shape == msms[0].tcounts_.shape and not mismatch.nnz,
+          'replicate 0 differs from a recount of its rows')
+    C = assigns_to_counts(labels, lag_time=MSM_LAG)
+    t = time.perf_counter()
+    bf, macro = bace.bace(C, n_macrostates=BACE_STATES)
+    t_bace = time.perf_counter() - t
+    # the states pruned for too few counts are absorbed first and count
+    # among the merges, as in the reference (enspara/msm/bace.py:45)
+    n_pruned = C.shape[0] - bace.baysean_prune(C)[2].size
+    kept = np.unique(macro[BACE_STATES][macro[BACE_STATES] >= 0])
+    check(kept.size == BACE_STATES - n_pruned and bool(np.isfinite(
+        list(bf.values())).all()), 'BACE left %d macrostates, %d states '
+        'pruned' % (kept.size, n_pruned))
+    print('bootstrap: %d MSMs at lag %d, replicate 0 equal to a recount of '
+          'its rows; BACE %d -> %d macrostates (%d states pruned first), '
+          'last Bayes factor %.6g'
+          % (BOOT_TRIALS, MSM_LAG, C.shape[0], kept.size, n_pruned,
+             bf[BACE_STATES]))
+    print('[%s] bootstrap %.4f s (host); BACE %.4f s (host)'
+          % (card, t_boot, t_bace), flush=True)
+    return {'boot_s': t_boot, 'bace_s': t_bace}
+
+
+def kmc(T, card):
+    """Phase 10d: synthetic_trajectory_device from every state of T for
+    KMC_STEPS steps on the card; the start column, every step an edge
+    with T > 0, and, for each row visited at least 1,000 times, the
+    empirical frequencies within 5 binomial sigma of T. The normal 5
+    sigma bound holds for the entries whose expected count is at least
+    100; the row's other entries are pooled into one bin (where the
+    expected count is a few, the binomial's skew puts ~0.15 entries of
+    this T beyond 5 sigma in a run of a correct sampler). Returns a
+    summary dict."""
+    Td = dense(T)
+    n = Td.shape[0]
+    start = np.arange(n)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    chains = synthetic_trajectory_device(T, start, KMC_STEPS)
+    t_kmc = time.perf_counter() - t
+    check(chains.shape == (n, KMC_STEPS) and chains.dtype == np.int32
+          and np.array_equal(chains[:, 0], start), 'KMC chains %s %s'
+          % (chains.shape, chains.dtype))
+    src = chains[:, :-1].ravel().astype(np.int64)
+    dst = chains[:, 1:].ravel()
+    check(bool((Td[src, dst] > 0).all()), 'a KMC step took an edge with '
+          'T = 0')
+    freq = np.bincount(src * n + dst, minlength=n * n).reshape(n, n)
+    visits = freq.sum(axis=1)
+    rows = visits >= 1000
+    v = visits[rows, None].astype(np.float64)
+    big = v * Td[rows] >= 100
+    # per row: the entries with large expected counts, then the rest pooled
+    P = np.concatenate([np.where(big, Td[rows], 0.0), np.where(
+        big, 0.0, Td[rows]).sum(axis=1, keepdims=True)], axis=1)
+    F = np.concatenate([np.where(big, freq[rows], 0), np.where(
+        big, 0, freq[rows]).sum(axis=1, keepdims=True)], axis=1)
+    dev = np.abs(F / v - P)
+    sigma = np.sqrt(P * (1 - P) / v)
+    check(bool((dev <= 5 * sigma + 1e-12).all()),
+          'KMC frequencies beyond 5 sigma of T')
+    worst = float((dev[sigma > 0] / sigma[sigma > 0]).max())
+    print('KMC: %d chains x %d steps on the card; every step an edge of T; '
+          '%d rows visited >= 1,000 times: %d entries with >= 100 expected '
+          'counts and each row\'s pooled rest within %.3g sigma of T (bar 5)'
+          % (n, KMC_STEPS, int(rows.sum()), int(big.sum()), worst))
+    print('[%s] KMC %.4f s (%.4g steps/s)'
+          % (card, t_kmc, n * (KMC_STEPS - 1) / t_kmc), flush=True)
+    return {'kmc_s': t_kmc}
+
+
+def tpt_msm():
+    """BASELINE config 4's MSM (benchmarks/reference_configs.py:226-245):
+    a ring of TPT_STATES states with random shortcuts from
+    RandomState(TPT_SEED) and a self count, row-normalized (not
+    reversible)."""
+    n = TPT_STATES
+    rng = np.random.RandomState(TPT_SEED)
+    rows = np.concatenate([np.arange(n), np.arange(n), np.arange(n)])
+    cols = np.concatenate([(np.arange(n) + 1) % n, (np.arange(n) - 1) % n,
+                           rng.randint(0, n, n)])
+    vals = np.concatenate([np.full(n, 0.45), np.full(n, 0.45),
+                           np.full(n, 0.10)])
+    C = scipy.sparse.coo_matrix((vals, (rows, cols)), (n, n)).tocsr()
+    C = C + scipy.sparse.eye(n) * 0.05
+    return (scipy.sparse.diags(1.0 / np.asarray(C.sum(axis=1)).ravel())
+            @ C).tocsr()
+
+
+def tpt_path(device, card):
+    """Phase 10e: committors and mfpts of BASELINE config 4 through the
+    device LU with refinement (no stall), each within 1e-10 of a host
+    sparse LU of the same absorbing system; net_fluxes and 10 paths equal
+    to those of the float64 host path, fluxes to 1e-9 relative; the LU
+    factorization timed on its own. Returns a summary dict."""
+    T = tpt_msm()
+    src, snk = np.array(TPT_SOURCES), np.array(TPT_SINKS)
+    with Stage(tpt_core, '_refined_solve') as lu, \
+            Stage(tpt_core, '_large_sparse_absorbing_solve') as host:
+        committors(T, src, snk)                      # warm-up
+        t = time.perf_counter()
+        q = committors(T, src, snk)
+        t_q = time.perf_counter() - t
+        mfpts(T, sinks=snk)
+        t = time.perf_counter()
+        m = mfpts(T, sinks=snk)
+        t_m = time.perf_counter() - t
+    check(lu.calls == 4 and host.calls == 0, 'committors/mfpts: %d device '
+          'LU solves, %d host solves (a stall)' % (lu.calls, host.calls))
+
+    A, b = tpt_core._absorbing_csr_system(T, snk, src, np.append(src, snk))
+    t = time.perf_counter()
+    q_ref = scipy.sparse.linalg.spsolve(A.tocsc(), b,
+                                        permc_spec='MMD_AT_PLUS_A')
+    t_ref = time.perf_counter() - t
+    q_ref[snk] = 1.0
+    q_err = float(np.abs(q - q_ref).max())
+    check(q_err <= 1e-10, 'committors differ from spsolve by %g' % q_err)
+    A2, _ = tpt_core._absorbing_csr_system(T, snk, np.empty(0, int), snk)
+    c = np.ones(TPT_STATES)
+    c[snk] = 0.0
+    m_ref = scipy.sparse.linalg.spsolve(A2.tocsc(), c,
+                                        permc_spec='MMD_AT_PLUS_A')
+    m_ref[snk] = 0.0
+    m_err = float(np.abs(m - m_ref).max() / np.abs(m_ref).max())
+    check(m_err <= 1e-10, 'mfpts differ from spsolve by %g relative' % m_err)
+
+    t = time.perf_counter()
+    dense_A = dense_on_device(A, device=device)
+    torch.cuda.synchronize()
+    t_dense = time.perf_counter() - t
+    torch.linalg.lu_factor(dense_A)                  # warm-up
+    lu_ms = min(events_ms(lambda: torch.linalg.lu_factor(dense_A))[0]
+                for _ in range(3))
+    del dense_A
+
+    t = time.perf_counter()
+    nf = net_fluxes(T, src, snk)
+    t_nf = time.perf_counter() - t
+    t = time.perf_counter()
+    found, fluxes = paths(src, snk, nf, remove_path='subtract',
+                          num_paths=TPT_PATHS)
+    t_paths = time.perf_counter() - t
+    with on_the_host():
+        t = time.perf_counter()
+        nf_ref = net_fluxes(T, src, snk)
+        t_nf_host = time.perf_counter() - t
+    found_ref, fluxes_ref = paths(src, snk, nf_ref, remove_path='subtract',
+                                  num_paths=TPT_PATHS)
+    check(len(found) == len(found_ref) == TPT_PATHS and all(
+        np.array_equal(a, b) for a, b in zip(found, found_ref)),
+        'the %d paths differ from the float64 host paths' % TPT_PATHS)
+    f_err = float(np.abs(fluxes - fluxes_ref).max()
+                  / np.abs(fluxes_ref).max())
+    check(f_err <= 1e-9, 'path fluxes differ by %g relative' % f_err)
+    print('TPT (BASELINE config 4): %d states, %d nonzeros, %s -> %s: '
+          'committors and mfpts by the device LU with refinement, no stall '
+          '(%d solves), within %.3g of spsolve (mfpts %.3g relative); %d '
+          'paths equal to the float64 host paths, fluxes within %.3g '
+          'relative; top path flux %.6g over %d states'
+          % (TPT_STATES, T.nnz, TPT_SOURCES, TPT_SINKS, lu.calls, q_err,
+             m_err, len(found), f_err, fluxes[0], len(found[0])))
+    print('[%s] TPT warm: committors %.4f s, mfpts %.4f s (each densify + '
+          'fp32 lu_factor + refinement); densify %.4f s; lu_factor %.3f ms '
+          'at %d x %d fp32; net_fluxes %.4f s (host %.4f s); %d paths '
+          '%.4f s; host spsolve of the committor system %.4f s'
+          % (card, t_q, t_m, t_dense, lu_ms, TPT_STATES, TPT_STATES, t_nf,
+             t_nf_host, TPT_PATHS, t_paths, t_ref), flush=True)
+    return {'committors_s': t_q, 'lu_ms': lu_ms, 'net_fluxes_s': t_nf}
+
+
+def analysis_path(labels, device, card):
+    """Phase 10: the analysis path on phase 5's labels and BASELINE
+    config 4, with none of the six kernels launched."""
+    reset_launches()
+    out = its_cli(labels, card)
+    m, nums = estimator(labels, card)
+    out.update(nums)
+    out.update(bootstrap_bace(labels, card))
+    out.update(kmc(m.tprobs_, card))
+    out.update(tpt_path(device, card))
+    launched = (kcenters_chunk.n_launches,
+                qcp_matrix.qcp_rmsd_matrix_kernel.n_launches,
+                ell_spmm_kernel.n_launches, kcenters_iteration.n_launches,
+                kcenters_iteration_skip.n_launches)
+    check(not any(launched), 'the analysis path launched a kernel: %s'
+          % (launched,))
+    print('[%s] phase 10 (analysis path) passed: %s'
+          % (card, json.dumps({k: (float('%.6g' % v) if isinstance(v, float)
+                                   else v) for k, v in out.items()})),
+          flush=True)
+
+
 def main():
     card = card_line()
     print('card:', card, flush=True)
@@ -1522,7 +1901,7 @@ def main():
     torch.cuda.empty_cache()
 
     # -- 5. cluster -> reassign through the apps at full size --------------
-    path = reassign_path(device, card)
+    path, labels = reassign_path(device, card)
 
     # -- 6. the ELL SpMM kernel and its plain version ----------------------
     T, pi, S = scale_point()
@@ -1556,6 +1935,10 @@ def main():
     # -- 9. the sharded path at full size ----------------------------------
     sharded = sharded_path(device, frames, single, t_single, card)
     del frames
+    torch.cuda.empty_cache()
+
+    # -- 10. the analysis path on phase 5's labels -------------------------
+    analysis_path(labels, device, card)
     print('launches: north star kcenters_step %d; north star tri_skip=False '
           'kcenters_step_noskip %d; cluster -> reassign kcenters_step %d, '
           'qcp_matrix %d; scale-point eigensolve ell_spmm %d; implied '

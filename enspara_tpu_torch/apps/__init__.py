@@ -1,1 +1,2 @@
-"""Command-line apps of the port: ``cluster`` and ``reassign``."""
+"""Command-line apps of the port: ``cluster``, ``reassign`` and
+``implied_timescales``."""

@@ -5,18 +5,20 @@ The two share the frame layout (``(3*A_pad, n_pad)`` float32, rows
 kernel, so a JAX ``PreparedRMSDFrames`` and the arguments and results
 of ``kcenters_chunk_skip_pallas`` cross as numpy arrays. The arguments
 of the all-pairs TPU kernel (``qcp_pallas._call_pallas``) cross to the
-inputs of ``ops.qcp_matrix``.
+inputs of ``ops.qcp_matrix``. An ``MSM`` manifest the JAX package saved
+loads as the port's ``MSM``.
 """
 
 import numpy as np
 import torch
 
 from .cluster.engine import TILE, PreparedRMSDFrames, ShardedRMSDFrames
+from .msm.msm import MSM
 from .ops.kcenters_step import make_state
 from .util.device import resolve_device
 
 __all__ = ['prepared_from_numpy', 'sharded_from_numpy', 'state_from_numpy',
-           'result_to_numpy', 'qcp_inputs_from_pallas']
+           'result_to_numpy', 'qcp_inputs_from_pallas', 'msm_from_manifest']
 
 
 def prepared_from_numpy(frames_r, g, n, n_atoms, tile=TILE, device=None):
@@ -102,3 +104,12 @@ def qcp_inputs_from_pallas(frames_t, centers_t, g_f, g_c):
     def column(g):
         return np.ascontiguousarray(np.asarray(g, np.float32).reshape(-1))
     return layout(frames_t), column(g_f), layout(centers_t), column(g_c)
+
+
+def msm_from_manifest(path):
+    """The port's :class:`~enspara_tpu_torch.msm.MSM` from a manifest
+    directory, or a zip archive of one, that the JAX package's
+    ``MSM.save`` (or this package's) wrote: ``MSM.load``, whose
+    unpickler maps the pickled ``enspara_tpu.msm.builders.<name>`` to
+    this package's builder of that name."""
+    return MSM.load(path)

@@ -1,14 +1,19 @@
-"""Synthetic MSM data (counterpart of ``enspara_tpu/msm/synthetic_data.py``,
-host code; reference: enspara/msm/synthetic_data.py):
-block-metastable sparse counts and the host kinetic Monte Carlo chain.
+"""Synthetic MSM data (counterpart of ``enspara_tpu/msm/synthetic_data.py``;
+reference: enspara/msm/synthetic_data.py): block-metastable sparse
+counts, the host kinetic Monte Carlo chain, the device KMC over many
+chains and the host ensemble evolution.
 """
 
 import numpy as np
 import scipy.sparse
+import scipy.sparse.linalg
+import torch
 
 from .. import exception
+from ..util.device import resolve_device
 
-__all__ = ['synthetic_trajectory', 'sparse_metastable_counts']
+__all__ = ['synthetic_trajectory', 'synthetic_ensemble',
+           'synthetic_trajectory_device', 'sparse_metastable_counts']
 
 
 def sparse_metastable_counts(n_states, n_blocks=25, seed=3,
@@ -91,3 +96,90 @@ def synthetic_trajectory(T, start_state, n_steps, random_state=None):
             np.searchsorted(row_cdf, u * row_cdf[-1], side='right'),
             n_states - 1)
     return path
+
+
+def synthetic_trajectory_device(T, start_states, n_steps, generator=None):
+    """Vectorized kinetic Monte Carlo on a device (counterpart of
+    ``enspara_tpu/msm/synthetic_data.py:101-135``): simulate
+    ``len(start_states)`` independent chains of ``n_steps`` states each.
+
+    The chains run on ``generator``'s device; without one, on the device
+    of ``T`` when it is a tensor, else on the card (see
+    :func:`~enspara_tpu_torch.util.device.resolve_device`), with a
+    generator seeded 0 there. All uniforms are drawn up front,
+    ``(n_steps - 1, n_chains)`` (the JAX package takes a PRNG key
+    instead, so the streams differ). Each step gathers the chains' rows
+    of the float64 per-row CDFs of T and takes ``searchsorted`` of the
+    uniform scaled by the row's total, clamped to the row's last
+    positive entry: every step follows an edge with ``T > 0``.
+
+    Parameters
+    ----------
+    T : (n_states, n_states) row-stochastic matrix (dense or scipy sparse).
+    start_states : (n_chains,) int array.
+    generator : torch.Generator on the device the chains run on.
+
+    Returns
+    -------
+    (n_chains, n_steps) int32 array of state sequences; column 0 is
+    ``start_states``.
+    """
+    if generator is not None:
+        dev = generator.device
+    else:
+        dev = resolve_device(T)
+        generator = torch.Generator(device=dev).manual_seed(0)
+    rows = T.toarray() if scipy.sparse.issparse(T) else T
+    P = torch.as_tensor(rows, device=dev).to(torch.float64)
+    n_states = P.shape[0]
+    cdf = torch.cumsum(P, dim=1)
+    total = cdf[:, -1]
+    positive = P > 0
+    # the last column with T > 0 of each row (0 for a row without one)
+    last = torch.where(positive, torch.arange(n_states, device=dev),
+                       0).amax(dim=1)
+
+    state = torch.as_tensor(np.asarray(start_states), device=dev).to(
+        torch.int64).reshape(-1)
+    u = torch.rand((max(n_steps - 1, 0), state.shape[0]), generator=generator,
+                   device=dev, dtype=torch.float64)
+    path = [state]
+    for k in range(u.shape[0]):
+        nxt = torch.searchsorted(cdf[state], (u[k] * total[state])[:, None],
+                                 right=True)[:, 0]
+        state = torch.minimum(nxt, last[state])
+        path.append(state)
+    chain = torch.stack(path, dim=1)[:, :n_steps]
+    # a state with no outgoing probability mass cannot be sampled from
+    stuck = (total[chain[:, :-1]] <= 0).nonzero()
+    if stuck.shape[0]:
+        raise exception.DataInvalid(
+            'Transition matrix row %d has zero total probability; cannot '
+            'continue the synthetic trajectory from it.'
+            % int(chain[stuck[0, 0], stuck[0, 1]]))
+    return chain.to(torch.int32).cpu().numpy()
+
+
+def synthetic_ensemble(T, init_pops, n_steps, observable_per_state=None):
+    """Evolve populations p <- p T for n_steps; optionally project onto
+    a per-state observable. (counterpart of
+    ``enspara_tpu/msm/synthetic_data.py:138-158``, host code; reference:
+    synthetic_data.py:49)"""
+    if scipy.sparse.issparse(T):
+        T_op = scipy.sparse.linalg.aslinearoperator(T.tocsr())
+    else:
+        T_op = scipy.sparse.linalg.aslinearoperator(np.asarray(T))
+
+    p = np.asarray(init_pops, dtype=float).copy()
+    if observable_per_state is not None:
+        observations = [p.dot(observable_per_state)]
+        for _ in range(n_steps - 1):
+            p = T_op.rmatvec(p)
+            observations.append(p.dot(observable_per_state))
+    else:
+        observations = [p]
+        for _ in range(n_steps - 1):
+            p = T_op.rmatvec(p)
+            observations.append(p)
+
+    return p, np.array(observations)

@@ -20,8 +20,13 @@ from enspara_tpu_torch.msm import (assigns_to_counts_device,
 @pytest.fixture(autouse=True)
 def _cpu_platform(monkeypatch):
     """Host inputs run on the CPU in these tests: with no device named,
-    the port sends them to the card."""
+    the port sends them to the card. Torch runs on one thread: the
+    tier-1 run puts several test workers on one host's cores."""
     monkeypatch.setenv('ENSPARA_TPU_PLATFORM', 'cpu')
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def _assigns(rng, n_traj=5, length=300, n_states=7):

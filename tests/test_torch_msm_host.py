@@ -10,6 +10,7 @@ import io
 import numpy as np
 import pytest
 import scipy.sparse
+import torch
 
 from enspara_tpu.msm import builders as jax_builders
 from enspara_tpu.msm import synthetic_data as jax_synthetic
@@ -26,8 +27,13 @@ from enspara_tpu_torch.ra import RaggedArray
 @pytest.fixture(autouse=True)
 def _cpu_platform(monkeypatch):
     """Host inputs run on the CPU in these tests: with no device named,
-    the port sends them to the card."""
+    the port sends them to the card. Torch runs on one thread: the
+    tier-1 run puts several test workers on one host's cores."""
     monkeypatch.setenv('ENSPARA_TPU_PLATFORM', 'cpu')
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def _assigns(seed, n_states=9, gaps=False):

@@ -9,6 +9,7 @@ on the timescales."""
 import numpy as np
 import pytest
 import scipy.sparse
+import torch
 
 from enspara_tpu.msm import builders as jax_builders
 from enspara_tpu.msm.eigen_device import \
@@ -22,8 +23,13 @@ from enspara_tpu_torch.msm.synthetic_data import sparse_metastable_counts
 @pytest.fixture(autouse=True)
 def _cpu_platform(monkeypatch):
     """Host inputs run on the CPU in these tests: with no device named,
-    the port sends them to the card."""
+    the port sends them to the card. Torch runs on one thread: the
+    tier-1 run puts several test workers on one host's cores."""
     monkeypatch.setenv('ENSPARA_TPU_PLATFORM', 'cpu')
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 @pytest.mark.parametrize('builder', ['mle', 'transpose'])

@@ -31,8 +31,13 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 @pytest.fixture(autouse=True)
 def _cpu_platform(monkeypatch):
     """Host inputs run on the CPU in these tests: with no device named,
-    the port sends them to the card."""
+    the port sends them to the card. Torch runs on one thread: the
+    tier-1 run puts several test workers on one host's cores."""
     monkeypatch.setenv('ENSPARA_TPU_PLATFORM', 'cpu')
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def _cpu_mesh(n=8):

@@ -29,8 +29,13 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 @pytest.fixture(autouse=True)
 def _cpu_platform(monkeypatch):
     """Host inputs run on the CPU in these tests: with no device named,
-    the port sends them to the card."""
+    the port sends them to the card. Torch runs on one thread: the
+    tier-1 run puts several test workers on one host's cores."""
     monkeypatch.setenv('ENSPARA_TPU_PLATFORM', 'cpu')
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def basin_data(rng, n, a, n_basins, noise=0.2, dwell=64):
@@ -97,7 +102,10 @@ def test_main_path_imports_no_jax():
         '       or m.split(".")[0] in ("jax", "sklearn", "psutil")]\n'
         'assert not bad, bad\n'
         'for name in ("msm.eigen_device", "parallel.mesh", "parallel.ops",\n'
-        '             "parallel.io", "ops.qcp_update"):\n'
+        '             "parallel.io", "ops.qcp_update", "msm.msm",\n'
+        '             "msm.timescales", "msm.bootstrap", "msm.bace",\n'
+        '             "tpt.core", "tpt.tpt", "tpt.path",\n'
+        '             "apps.implied_timescales"):\n'
         '    assert "enspara_tpu_torch." + name in sys.modules, name\n')
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, '-c', code], cwd=REPO, env=env,

@@ -10,6 +10,7 @@ exactly equal, eigenvalues 1e-4, pi 1e-5, eigenvectors 1e-3 up to sign.
 
 import numpy as np
 import pytest
+import torch
 
 from enspara_tpu.cluster import engine as jengine
 from enspara_tpu.msm.eigen_device import \
@@ -27,8 +28,13 @@ from test_torch_port import assert_rmsd_close
 @pytest.fixture(autouse=True)
 def _cpu_platform(monkeypatch):
     """Host inputs run on the CPU in these tests: with no device named,
-    the port sends them to the card."""
+    the port sends them to the card. Torch runs on one thread: the
+    tier-1 run puts several test workers on one host's cores."""
     monkeypatch.setenv('ENSPARA_TPU_PLATFORM', 'cpu')
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 N, ATOMS, K, LAG, EIGS = 4096, 16, 64, 5, 8
 

@@ -26,6 +26,16 @@ from enspara_tpu_torch.ops.qcp import rmsd_from_S_components_unrolled
 from test_torch_port import assert_rmsd_close
 
 
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """Torch runs on one thread: the tier-1 run puts several test
+    workers on one host's cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def rna_tf32(x):
     """float32 -> the nearest TF32 value (ties away from zero), as
     ``to_tf32`` of ``csrc/mma_tf32.cuh``."""
