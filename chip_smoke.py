@@ -68,7 +68,22 @@ each, in parallel) from the checkout and drives these paths:
      5 binomial sigma); (e) BASELINE config 4's TPT (a 10,000-state ring
      with shortcuts): committors and mfpts by the fp32 device LU with
      fp64 refinement (no stall; within 1e-10 of a host spsolve),
-     net_fluxes and 10 paths equal to those of the float64 host path.
+     net_fluxes and 10 paths equal to those of the float64 host path;
+11.  clustering feature vectors, with none of the six kernels: per metric
+     (euclidean, manhattan, hamming) k-centers at 65,536 x 64 to 128
+     centers against a float64 farthest-point oracle; 1M x 64 blob
+     features (the generator of benchmarks/reference_cpu_kcenters.py,
+     2,000 blobs) in 100 .npy files through the cluster app's sequence
+     (--features --cluster-distance euclidean --algorithm khybrid
+     --cluster-number 1000 --subsample 10 --checkpoint, the features
+     reassign of every frame, then --algorithm kmedoids warm-started from
+     the checkpoint, its cost no higher); then on the full 1M x 64:
+     resume_kcenters from a 500-center checkpoint equal to a straight
+     1000-center run bit for bit, the loop's per-iteration profile,
+     kcenters over a 4-shard mesh of the card against one device,
+     manhattan and hamming (1M x 64 three-state labels) k-centers and
+     assignment; covering radii and labels against float64, each
+     assignment's peak card memory below 16 GB.
 
 Every time printed was taken on the card's machine (device stages timed
 with CUDA events or to a synchronize, host stages on its host), warm
@@ -128,6 +143,8 @@ from enspara_tpu_torch.ops.qcp import rmsd_from_S_components_unrolled
 from enspara_tpu_torch.ops.sparse import dense_on_device
 from enspara_tpu_torch.tpt import committors, mfpts, net_fluxes, paths
 from enspara_tpu_torch.tpt import core as tpt_core
+from enspara_tpu_torch.util.checkpoint import (resume_kcenters,
+                                               save_clustering_checkpoint)
 from enspara_tpu_torch.util.device import require_cuda
 
 N_FRAMES, N_ATOMS, N_CLUSTERS, LAG, N_EIGS = 1_000_000, 64, 1000, 10, 21
@@ -192,6 +209,15 @@ HOST_ITS_FLAGS = ('--lag-times', '5:100:10', '--n-eigenvalues', '5',
 MSM_LAG, BOOT_TRIALS, BACE_STATES, KMC_STEPS = 10, 10, 25, 10_000
 TPT_STATES, TPT_SEED, TPT_SOURCES, TPT_SINKS = 10_000, 3, [0], [5000]
 TPT_PATHS = 10
+# phase 11, clustering feature vectors: trajectories x frames each of
+# features (phase 5's layout), blobs of the generator of
+# benchmarks/reference_cpu_kcenters.py, centers, subsample, the centers of
+# the checkpoint resume_kcenters continues, the oracle check's (frames,
+# centers), and the bound on an assignment's peak card memory
+FEAT_TRJ, FEAT_FRAMES, FEAT_DIM, FEAT_BLOBS = 100, 10_000, 64, 2000
+FEAT_K, FEAT_SUBSAMPLE, FEAT_RESUME_FROM = 1000, 10, 500
+FEAT_CHECK = (65_536, 128)
+FEAT_MEM_LIMIT = 16 * 2 ** 30
 
 
 def check(ok, what):
@@ -1274,7 +1300,7 @@ def sharded_path(device, X, single, t_single, card):
     t_eig = time.perf_counter() - t
     centers = np.stack(res.centers)
     with Stage(engine, 'assign_device') as asg:
-        a_m, d_m = engine.assign_device(X, centers, mesh=mesh)
+        a_m, d_m = engine.assign_device(X, centers, 'rmsd', mesh=mesh)
     t = time.perf_counter()
     its_m = implied_timescales_batched(a, SHARDED_LAGS, n_times=N_EIGS - 1,
                                        mesh=mesh)
@@ -1326,7 +1352,7 @@ def sharded_path(device, X, single, t_single, card):
     w_ref, pi_ref = host_eigs(counts_h)
     eig_err = float(np.abs(vals - w_ref).max())
     check(eig_err < 1e-4, 'eigenvalues differ by %g' % eig_err)
-    a_1, d_1 = engine.assign_device(X, centers)
+    a_1, d_1 = engine.assign_device(X, centers, 'rmsd')
     check(np.array_equal(a_m, a_1) and np.array_equal(d_m, d_1),
           'assign_device(mesh=) differs from one device')
     its_1 = implied_timescales_batched(a, SHARDED_LAGS, n_times=N_EIGS - 1)
@@ -1730,6 +1756,371 @@ def analysis_path(labels, device, card):
           flush=True)
 
 
+def feature_data(n, seed=4):
+    """Blob features: the generator of benchmarks/reference_cpu_kcenters.py
+    (RandomState, centers at scale 4, unit noise) with FEAT_BLOBS blobs."""
+    rng = np.random.RandomState(seed)
+    centers = rng.normal(scale=4.0, size=(FEAT_BLOBS, FEAT_DIM))
+    labels = rng.randint(0, FEAT_BLOBS, n)
+    return (centers[labels]
+            + rng.normal(size=(n, FEAT_DIM))).astype(np.float32)
+
+
+def rotamer_labels(n, seed=5):
+    """Three-state int32 labels (rotamer-like): FEAT_BLOBS templates,
+    each position redrawn with probability 0.2."""
+    rng = np.random.RandomState(seed)
+    tmpl = rng.randint(0, 3, size=(FEAT_BLOBS, FEAT_DIM)).astype(np.int32)
+    X = tmpl[rng.randint(0, FEAT_BLOBS, n)]
+    flip = rng.random_sample(X.shape) < 0.2
+    X[flip] = rng.randint(0, 3, size=int(flip.sum()))
+    return X
+
+
+def dist64_np(X, C, metric):
+    """float64 distances (n, k) on the host."""
+    X, C = np.asarray(X, np.float64), np.asarray(C, np.float64)
+    if metric == 'euclidean':
+        return np.sqrt(((X[:, None] - C[None]) ** 2).sum(-1))
+    if metric == 'manhattan':
+        return np.abs(X[:, None] - C[None]).sum(-1)
+    return (X[:, None] != C[None]).mean(-1)
+
+
+def farthest_point64(X, metric, k):
+    """The float64 farthest-point oracle on the host: first-max picks,
+    ``(center indices, distances)``."""
+    X64 = np.asarray(X, np.float64)
+    dist = np.full(len(X), np.inf)
+    ctr = []
+    for _ in range(k):
+        ctr.append(int(np.argmax(dist)))
+        dist = np.minimum(dist, dist64_np(X64, X64[ctr[-1]][None],
+                                          metric)[:, 0])
+    return np.array(ctr), dist
+
+
+def nearest64(X, C, metric, chunk=4):
+    """``(min distance, first argmin)`` of every row of ``X`` to the rows
+    of ``C``, in float64 on X's device, a few centers at a time."""
+    X64, C64 = X.double(), torch.as_tensor(C, device=X.device).double()
+    best_d = torch.full((len(X),), float('inf'), dtype=torch.float64,
+                        device=X.device)
+    best_i = torch.zeros(len(X), dtype=torch.long, device=X.device)
+    for lo in range(0, len(C64), chunk):
+        c = C64[lo:lo + chunk]
+        if metric == 'hamming':
+            d = (X64[:, None] != c[None]).double().mean(-1)
+        else:
+            diff = X64[:, None] - c[None]
+            d = diff.square_().sum(-1).sqrt_() if metric == 'euclidean' \
+                else diff.abs_().sum(-1)
+        m, a = d.min(1)
+        upd = m < best_d
+        best_d = torch.where(upd, m, best_d)
+        best_i = torch.where(upd, a + lo, best_i)
+    return best_d.cpu().numpy(), best_i.cpu().numpy()
+
+
+def same_covering(ctr, radius, ref_ctr, ref_radius, X, metric):
+    """Centers equal up to the first near tie (both frames equally far,
+    within 1e-5, from the centers before it), covering radii within 1e-5.
+    Returns a verdict string."""
+    ctr, ref_ctr = np.asarray(ctr), np.asarray(ref_ctr)
+    check(len(ctr) == len(ref_ctr), '%d vs %d centers' % (len(ctr),
+                                                         len(ref_ctr)))
+    diff = np.flatnonzero(ctr != ref_ctr)
+    verdict = 'centers equal'
+    if len(diff):
+        i = int(diff[0])
+        d = dist64_np(X[[ctr[i], ref_ctr[i]]], X[ctr[:i]], metric).min(1)
+        check(abs(d[0] - d[1]) <= 1e-5 * d.max(),
+              '%s pick %d differs (%d vs %d) without a near tie: %r'
+              % (metric, i, ctr[i], ref_ctr[i], d))
+        verdict = 'first divergence at pick %d (a near tie, %.9g vs %.9g)' \
+            % (i, d[0], d[1])
+    check(abs(radius - ref_radius) <= 1e-5 * ref_radius,
+          '%s covering radius %r vs %r' % (metric, radius, ref_radius))
+    return verdict
+
+
+def labels_vs_float64(X_dev, X_host, C, a, d, metric):
+    """Assignments ``(a, d)`` of the frames to centers ``C`` against the
+    float64 nearest center: labels equal but for near ties (euclidean:
+    within 16 ulp of ``|x|^2 + |c|^2`` on d^2; manhattan: within 1e-5;
+    hamming: none), distances on the same bars. Returns ``(flips,
+    float64 covering radius)``."""
+    d64, a64 = nearest64(X_dev, C, metric)
+    flips = np.flatnonzero(a != a64)
+    eps = np.finfo(np.float32).eps
+    C64 = np.asarray(C, np.float64)
+    if metric == 'hamming':
+        check(len(flips) == 0 and np.array_equal(d, d64),
+              'hamming labels differ from float64 at %d frames' % len(flips))
+        return 0, float(d64.max())
+    if metric == 'euclidean':
+        xx = (np.asarray(X_host, np.float64) ** 2).sum(1)
+        scale = xx + (C64 ** 2).sum(1).max()
+        check(bool((np.abs(d ** 2 - d64 ** 2)
+                    <= 1e-5 * d64 ** 2 + 16 * eps * scale).all()),
+              'euclidean distances outside the d^2 bar')
+    else:
+        check(bool((np.abs(d - d64) <= 1e-5 * d64).all()),
+              'manhattan distances beyond rtol 1e-5 of float64')
+    took = dist64_np(X_host[flips], C64, metric)[np.arange(len(flips)),
+                                                   a[flips]]
+    gap = np.abs(took - d64[flips])
+    bar = 16 * eps * scale[flips] / np.maximum(took + d64[flips], 1e-30) \
+        if metric == 'euclidean' else 1e-5 * d64[flips]
+    check(bool((gap <= bar).all()), '%s: %d label flips, some beyond a '
+          'near tie' % (metric, len(flips)))
+    return len(flips), float(d64.max())
+
+
+def feature_loop_profile(prep, card):
+    """Where an iteration of the feature k-centers loop goes: runs of 64
+    and 128 centers under torch.profiler (CUDA activity), after a
+    warm-up, and their difference over 64 iterations: launches, device
+    ms, wall ms and the card's idle share."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]):
+        engine.kcenters_device(prep, prep.metric, n_clusters=CHUNK_CENTERS)
+        torch.cuda.synchronize()
+    runs = []
+    for k in (CHUNK_CENTERS, 2 * CHUNK_CENTERS):
+        engine.kcenters_device(prep, prep.metric, n_clusters=k)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            engine.kcenters_device(prep, prep.metric, n_clusters=k)
+            torch.cuda.synchronize()
+            wall = 1e3 * (time.perf_counter() - t)
+        n, ms = 0, 0.0
+        for e in prof.key_averages():
+            us = getattr(e, 'device_time_total', None)
+            if us is None:
+                us = getattr(e, 'cuda_time_total', 0.0)
+            if us > 0:
+                n += e.count
+                ms += us / 1e3
+        runs.append((wall, n, ms))
+    wall, n, ms = [(b - a) / CHUNK_CENTERS for a, b in zip(*runs)]
+    if ms <= 0 or wall < ms:
+        print('[%s] feature loop profile: device time %.4f ms, wall %.4f '
+              'ms an iteration (launches and idle share not measured)'
+              % (card, ms, wall), flush=True)
+        return None
+    print('[%s] feature loop per iteration (%s, torch.profiler, %d-center '
+          'runs minus %d-center runs): wall %.4f ms, %.2f launches, %.4f ms '
+          'on the card, card idle %.1f%%'
+          % (card, prep.metric, 2 * CHUNK_CENTERS, CHUNK_CENTERS, wall, n,
+             ms, 100 * (1 - ms / wall)), flush=True)
+    return n
+
+
+def feature_checks(device, card):
+    """Phase 11's oracle check: per metric, k-centers at FEAT_CHECK
+    against the float64 farthest-point oracle."""
+    n, k = FEAT_CHECK
+    out = []
+    for metric in ('euclidean', 'manhattan', 'hamming'):
+        X = rotamer_labels(n, seed=7) if metric == 'hamming' \
+            else feature_data(n, seed=6)
+        res = engine.kcenters_device(X, metric, n_clusters=k, device=device)
+        ctr64, d64 = farthest_point64(X, metric, k)
+        out.append('%s: %s' % (metric, same_covering(
+            res.center_indices, res.distances.max(), ctr64, d64.max(), X,
+            metric)))
+    print('[%s] feature k-centers at %d x %d to %d centers against the '
+          'float64 oracle: %s' % (card, n, FEAT_DIM, k, '; '.join(out)),
+          flush=True)
+
+
+def timed_s(fn):
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t
+
+
+def assign_peak(fn):
+    """``fn()`` with the card's peak allocation inside it, checked below
+    FEAT_MEM_LIMIT: ``(result, seconds, peak bytes)``."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out, s = timed_s(fn)
+    peak = torch.cuda.max_memory_allocated()
+    check(peak < FEAT_MEM_LIMIT, 'assignment peak %.2f GB' % (peak / 2 ** 30))
+    return out, s, peak
+
+
+def feature_path(device, card):
+    """Phase 11: clustering feature vectors at 1M x 64 on the card, the
+    CLI sequence of apps/cluster.py :: main (--features, khybrid,
+    --checkpoint, the features reassign, a kmedoids warm start) and the
+    library calls (resume_kcenters, manhattan, hamming, a 4-shard mesh),
+    with none of the six kernels launched."""
+    feature_checks(device, card)
+    n = FEAT_TRJ * FEAT_FRAMES
+    t = time.perf_counter()
+    X = feature_data(n)
+    print('made %d x %d blob features (%d blobs) in %.1f s'
+          % (n, FEAT_DIM, FEAT_BLOBS, time.perf_counter() - t), flush=True)
+    reset_launches()
+    engine_kmedoids._pam_sweeps.n_host_syncs = 0
+    with tempfile.TemporaryDirectory() as d:
+        files = []
+        for i in range(FEAT_TRJ):
+            files.append(os.path.join(d, 'f%03d.npy' % i))
+            np.save(files[-1], X[i * FEAT_FRAMES:(i + 1) * FEAT_FRAMES])
+        ck = os.path.join(d, 'ckpt')
+        out = {k: os.path.join(d, v) for k, v in (
+            ('--distances', 'dist.h5'), ('--assignments', 'assig.h5'),
+            ('--center-features', 'centers.npy'),
+            ('--center-indices', 'inds.npy'))}
+        base = ['cluster', '--features', *files, '--cluster-distance',
+                'euclidean', '--cluster-number', str(FEAT_K), '--subsample',
+                str(FEAT_SUBSAMPLE), '--random-state', '0', '--checkpoint',
+                ck]
+        for k, v in out.items():
+            base += [k, v]
+
+        # 1. khybrid with --checkpoint: the sequence of main, but for the
+        # .h5 writes (no h5py on the card machine)
+        args = cluster_app.process_command_line(base + ['--algorithm',
+                                                        'khybrid'])
+        t = time.perf_counter()
+        lengths, data = cluster_util.load_trjs_or_features(args)
+        t_load = time.perf_counter() - t
+        with Stage(hybrid_mod, '_kcenters') as kc, \
+                Stage(hybrid_mod, '_kmedoids_iterations') as pam:
+            clustering = cluster_app.fit(args, data, device)
+        syncs = engine_kmedoids._pam_sweeps.n_host_syncs
+        cluster_app.save_checkpoint(args, clustering)
+        res = clustering.result_
+        result = res.partition(lengths)
+        t = time.perf_counter()
+        cluster_util.write_centers_indices(
+            args.center_indices, cluster_app.center_indices(result, args))
+        cluster_util.write_centers(result, args)
+        t_write = time.perf_counter() - t
+        check(np.load(args.center_features).shape == (FEAT_K, FEAT_DIM),
+              'center features %s' % (np.load(args.center_features).shape,))
+        cost_kc = float(np.mean(kc.result.distances ** 2))
+        cost = float(np.mean(res.distances ** 2))
+        check(cost <= cost_kc, 'PAM cost %r above k-centers cost %r'
+              % (cost, cost_kc))
+        ctr = np.asarray(res.center_indices)
+        check(len(set(ctr.tolist())) == FEAT_K, 'duplicate centers')
+
+        # 2. the features reassign of every frame
+        with Stage(engine, 'assign_device') as asg:
+            (r_assig, r_dist), t_reassign, peak_r = assign_peak(
+                lambda: cluster_util.reassign_features(result, args, device))
+        r_assig, r_dist = r_assig._data, r_dist._data
+        check(len(r_assig) == n and np.isfinite(r_dist).all(),
+              'reassign output %d' % len(r_assig))
+        X_dev = torch.from_numpy(X).to(device)
+        C = np.asarray(result.centers)
+        flips_r, _ = labels_vs_float64(X_dev, X, C, r_assig, r_dist,
+                                       'euclidean')
+
+        # 3. kmedoids warm-started from the checkpoint
+        before = np.load(os.path.join(ck, 'distances.npy'))
+        args2 = cluster_app.process_command_line(
+            base + ['--algorithm', 'kmedoids', '--cluster-iterations', '1'])
+        (warm, t_warm) = timed_s(lambda: cluster_app.fit(args2, data, device))
+        cost_ck = float(np.mean(before.astype(np.float64) ** 2))
+        cost_warm = float(np.mean(warm.result_.distances ** 2))
+        check(cost_warm <= cost_ck, 'kmedoids warm start cost %r above the '
+              "checkpoint's %r" % (cost_warm, cost_ck))
+        del data
+    launched = (kcenters_chunk.n_launches,
+                qcp_matrix.qcp_rmsd_matrix_kernel.n_launches,
+                ell_spmm_kernel.n_launches, kcenters_iteration.n_launches,
+                kcenters_iteration_skip.n_launches)
+    check(not any(launched), 'the feature CLI launched a kernel: %s'
+          % (launched,))
+    pairs = n * FEAT_K
+    print('features CLI: %d of %d frames clustered (--subsample %d) to %d '
+          'centers by euclidean, PAM cost %.6g <= k-centers cost %.6g; '
+          'checkpoint saved; reassign of every frame: %d label flips from '
+          'float64, each a near tie; kmedoids warm start from the '
+          'checkpoint: cost %.6g <= %.6g'
+          % (sum(lengths), n, FEAT_SUBSAMPLE, FEAT_K, cost, cost_kc, flips_r,
+             cost_warm, cost_ck))
+    print('[%s] features CLI: load %.4f s; k-centers %.4f s; PAM %.4f s (5 '
+          'sweeps, %d host syncs); write centers %.4f s; reassign %.4f s '
+          '(load + assign), of which assign %.4f s = %.4g pairs/s, peak %.2f '
+          'GB; kmedoids warm start %.4f s'
+          % (card, t_load, kc.seconds, pam.seconds, syncs, t_write,
+             t_reassign, asg.seconds, pairs / asg.seconds, peak_r / 2 ** 30,
+             t_warm), flush=True)
+
+    # 4. the library calls on the full 1M x 64
+    prep = engine.prepare_sharded(X_dev, 'euclidean')
+    full, t_full = timed_s(lambda: engine.kcenters_device(
+        prep, 'euclidean', n_clusters=FEAT_K))
+    d64, _ = nearest64(X_dev, X[full.center_indices], 'euclidean')
+    check(abs(full.distances.max() - d64.max()) <= 1e-5 * d64.max(),
+          'euclidean covering radius %r vs float64 %r'
+          % (full.distances.max(), d64.max()))
+    launches_it = feature_loop_profile(prep, card)
+    with tempfile.TemporaryDirectory() as d:
+        half = engine.kcenters_device(prep, 'euclidean',
+                                      n_clusters=FEAT_RESUME_FROM)
+        save_clustering_checkpoint(d, half.distances, half.assignments,
+                                   half.center_indices)
+        resumed, t_resume = timed_s(lambda: resume_kcenters(
+            d, X_dev, 'euclidean', n_clusters=FEAT_K))
+    check(np.array_equal(resumed.center_indices, full.center_indices) and
+          np.array_equal(resumed.assignments, full.assignments) and
+          np.array_equal(resumed.distances, full.distances),
+          'resume_kcenters from %d centers differs from a straight run'
+          % FEAT_RESUME_FROM)
+    mesh = FrameMesh((device,) * N_SHARDS)
+    sharded, t_mesh = timed_s(lambda: kcenters(
+        X_dev, 'euclidean', n_clusters=FEAT_K, mesh=mesh))
+    mesh_verdict = same_covering(sharded.center_indices,
+                                 sharded.distances.max(), full.center_indices,
+                                 full.distances.max(), X, 'euclidean')
+    lines = []
+    for metric in ('manhattan', 'hamming'):
+        Xm = X if metric == 'manhattan' else rotamer_labels(n)
+        Xm_dev = torch.from_numpy(Xm).to(device)
+        kres, t_k = timed_s(lambda: kcenters(Xm_dev, metric,
+                                             n_clusters=FEAT_K))
+        C = Xm[np.asarray(kres.center_indices)]
+        (a, dd), t_a, peak = assign_peak(
+            lambda: engine.assign_device(Xm_dev, C, metric))
+        flips, r64 = labels_vs_float64(Xm_dev, Xm, C, a, dd, metric)
+        r = float(np.max(kres.distances))
+        check(abs(r - r64) <= 1e-5 * r64, '%s covering radius %r vs float64 '
+              '%r' % (metric, r, r64))
+        lines.append('%s k-centers %.4f s (%.4f ms per iteration), assign '
+                     '%.4f s = %.4g pairs/s (peak %.2f GB, %d label flips '
+                     'from float64)' % (metric, t_k, 1e3 * t_k / FEAT_K, t_a,
+                                        pairs / t_a, peak / 2 ** 30, flips))
+        del Xm_dev
+    launched = (kcenters_chunk.n_launches,
+                qcp_matrix.qcp_rmsd_matrix_kernel.n_launches,
+                ell_spmm_kernel.n_launches, kcenters_iteration.n_launches,
+                kcenters_iteration_skip.n_launches)
+    check(not any(launched), 'phase 11 launched a kernel: %s' % (launched,))
+    bound_ms = 1e3 * (n * FEAT_DIM * 4 + 8 * n) / HBM_RATE
+    ms_it = 1e3 * t_full / FEAT_K
+    print('[%s] feature k-centers %d x %d -> %d by euclidean: %.4f s, %.4f '
+          'ms per iteration, %s launches per iteration, bytes bound %.4f ms '
+          '(%.1f%% of it); covering radius within 1e-5 of float64; resume '
+          'from %d centers %.4f s, equal to the straight run bit for bit; '
+          '4-shard mesh %.4f s, %s; %s; none of the six kernels launched'
+          % (card, n, FEAT_DIM, FEAT_K, t_full, ms_it,
+             'not measured' if launches_it is None else '%.2f' % launches_it,
+             bound_ms, 100 * bound_ms / ms_it, FEAT_RESUME_FROM, t_resume,
+             t_mesh, mesh_verdict, '; '.join(lines)), flush=True)
+
+
 def main():
     card = card_line()
     print('card:', card, flush=True)
@@ -1939,6 +2330,10 @@ def main():
 
     # -- 10. the analysis path on phase 5's labels -------------------------
     analysis_path(labels, device, card)
+    torch.cuda.empty_cache()
+
+    # -- 11. clustering feature vectors at full size ------------------------
+    feature_path(device, card)
     print('launches: north star kcenters_step %d; north star tri_skip=False '
           'kcenters_step_noskip %d; cluster -> reassign kcenters_step %d, '
           'qcp_matrix %d; scale-point eigensolve ell_spmm %d; implied '

@@ -1,11 +1,19 @@
-"""`cluster` app: cluster trajectories into a state space by RMSD
-(counterpart of ``enspara_tpu/apps/cluster.py``, same flags, checks and
-messages).
+"""`cluster` app: cluster trajectories by RMSD, or feature vectors by
+euclidean or manhattan distance, into a state space (counterpart of
+``enspara_tpu/apps/cluster.py``, same flags, checks and messages).
 
     python -m enspara_tpu_torch.apps.cluster --trajectories ... \\
         --topology ... --atoms 'name CA' --algorithm khybrid \\
         --cluster-number 1000 --subsample 10 --distances d.h5 \\
         --assignments a.h5 --center-features c.pkl
+    python -m enspara_tpu_torch.apps.cluster --features f*.npy \\
+        --cluster-distance euclidean --algorithm khybrid \\
+        --cluster-number 1000 --subsample 10 --checkpoint ckpt/ \\
+        --distances d.h5 --assignments a.h5 --center-features c.npy
+
+``--checkpoint DIR`` saves the final clustering state there (the JAX
+package's format, :mod:`enspara_tpu_torch.util.checkpoint`); a DIR that
+already holds a manifest warm-starts ``--algorithm kmedoids`` from it.
 
 It runs on the CUDA device; ``ENSPARA_TPU_PLATFORM=cpu`` runs it on the
 CPU, where every kernel takes its plain version. Options whose
@@ -25,6 +33,8 @@ from ..util.log import timed
 
 from ..cluster import KCenters, KHybrid, KMedoids, util
 from ..util.backend import select_device
+from ..util.checkpoint import (load_clustering_checkpoint,
+                               save_clustering_checkpoint)
 from . import util as apputil
 
 logger = logging.getLogger(__name__)
@@ -96,7 +106,10 @@ def process_command_line(argv):
         help='Path to an .h5 of initial distances (restarts).')
     cluster_args.add_argument(
         '--checkpoint', default=None, type=str,
-        help='Checkpoint directory (not ported yet).')
+        help='Checkpoint directory (util.checkpoint layout). If it '
+             'already holds a manifest, clustering warm-starts from '
+             'it (kmedoids only, like the --init-* flags); the final '
+             'clustering state is always saved back to it.')
     cluster_args.add_argument(
         '--subsample', default=1, type=int,
         help='Take only every nth frame when loading trajectories.')
@@ -132,8 +145,23 @@ def process_command_line(argv):
     args = parser.parse_args(argv[1:])
 
     if args.features:
-        raise _not_ported('--features', '5b')
-    if args.trajectories and args.topologies:
+        args.features = apputil.expand_files([args.features])[0]
+        if args.cluster_distance not in FEATURE_DISTANCES:
+            raise exception.ImproperlyConfigured(
+                'The given distance (%s) is not compatible with '
+                'features.' % args.cluster_distance)
+        if args.subsample != 1 and len(args.features) == 1:
+            raise exception.ImproperlyConfigured(
+                'Subsampling is not supported for h5 inputs.')
+        if args.topologies:
+            raise exception.ImproperlyConfigured(
+                'When --features is specified, --topology is '
+                'unneccessary.')
+        if args.atoms:
+            raise exception.ImproperlyConfigured(
+                'Option --atoms is only meaningful when clustering '
+                'trajectories.')
+    elif args.trajectories and args.topologies:
         args.trajectories = apputil.expand_files(args.trajectories)
         if not args.cluster_distance or args.cluster_distance == 'rmsd':
             args.cluster_distance = 'rmsd'
@@ -174,6 +202,18 @@ def process_command_line(argv):
         raise exception.ImproperlyConfigured(
             '--cluster-radius only has an effect when using kcenters or '
             'khybrid.')
+    if args.precision != 'fp32' and (
+            args.Clusterer is not KCenters
+            or args.cluster_distance != 'rmsd'):
+        raise exception.ImproperlyConfigured(
+            '--precision bf16 is only implemented for kcenters with '
+            'the rmsd metric (the fused TPU streaming path).')
+    if args.locality_sort and (
+            args.Clusterer is not KCenters
+            or args.cluster_distance != 'rmsd'):
+        raise exception.ImproperlyConfigured(
+            '--locality-sort is only implemented for kcenters with '
+            'the rmsd metric (the fused TPU tri-skip path).')
     if args.precision != 'fp32':
         raise _not_ported('--precision bf16', '3')
     if args.locality_sort:
@@ -186,9 +226,21 @@ def process_command_line(argv):
                     '--init-center-inds, --init-distances, and '
                     '--init-assignments are only implemented for '
                     'kmedoids')
-    if args.checkpoint:
-        raise _not_ported('--checkpoint', '5b')
+    if args.checkpoint and _manifest(args):
+        if args.Clusterer is not KMedoids:
+            raise exception.ImproperlyConfigured(
+                'Warm-starting from --checkpoint is only implemented '
+                'for kmedoids (matching the --init-* flags).')
+        if (args.init_center_inds or args.init_distances
+                or args.init_assignments):
+            raise exception.ImproperlyConfigured(
+                'Give either --checkpoint or the --init-* flags for a '
+                'restart, not both.')
     return args
+
+
+def _manifest(args):
+    return os.path.exists(os.path.join(args.checkpoint, 'manifest.json'))
 
 
 def _flat(path):
@@ -199,8 +251,8 @@ def _flat(path):
 
 def fit(args, data, device):
     """Build the parsed ``--algorithm``'s estimator on ``device`` and
-    fit it to ``data`` (k-medoids restarts from the ``--init-*``
-    files)."""
+    fit it to ``data`` (k-medoids restarts from a ``--checkpoint`` that
+    holds a manifest, or from the ``--init-*`` files)."""
     kwargs = {}
     if args.cluster_iterations is not None:
         if args.Clusterer is KHybrid:
@@ -216,6 +268,13 @@ def fit(args, data, device):
                                 device=device, **kwargs)
     if args.Clusterer is KMedoids:
         restart = {}
+        if args.checkpoint and _manifest(args):
+            state = load_clustering_checkpoint(args.checkpoint)
+            restart['distances'] = state['distances'].reshape(-1)
+            restart['assignments'] = state['assignments'].reshape(-1)
+            restart['cluster_center_inds'] = state['center_indices']
+            logger.info('Warm-starting from checkpoint %s (%d centers).',
+                        args.checkpoint, len(state['center_indices']))
         if args.init_distances:
             restart['distances'] = _flat(args.init_distances)
         if args.init_assignments:
@@ -224,6 +283,16 @@ def fit(args, data, device):
             restart['cluster_center_inds'] = np.load(args.init_center_inds)
         return clustering.fit(data, **restart)
     return clustering.fit(data)
+
+
+def save_checkpoint(args, clustering):
+    """Save the fitted clustering's state to ``--checkpoint``."""
+    r = clustering.result_
+    save_clustering_checkpoint(
+        args.checkpoint, np.asarray(r.distances), np.asarray(r.assignments),
+        np.asarray(r.center_indices),
+        metadata={'algorithm': args.algorithm, 'subsample': args.subsample})
+    logger.info('Saved clustering checkpoint to %s.', args.checkpoint)
 
 
 def center_indices(result, args):
@@ -244,6 +313,8 @@ def main(argv=None):
     del data
     logger.info('Clustered %s frames into %s clusters in %s seconds.',
                 sum(lengths), len(clustering.centers_), clustering.runtime_)
+    if args.checkpoint:
+        save_checkpoint(args, clustering)
 
     result = clustering.result_.partition(lengths)
     with timed('Wrote center indices in %.2f sec.', logger.info):

@@ -1,0 +1,76 @@
+"""`enspara` dispatcher: route a subcommand to its app's main
+(counterpart of ``enspara_tpu/apps/main.py:12-64``, same subcommands).
+
+    python -m enspara_tpu_torch.apps.main cluster --features f*.npy ...
+
+``cluster``, ``implied`` and ``reassign`` run the port's apps. The apps
+not ported yet raise ``ImproperlyConfigured`` naming the ROADMAP.md
+step that brings them: ``cards`` and ``entropy`` step 8, the two
+``smfret-*`` step 10.
+"""
+
+import argparse
+import importlib
+import sys
+
+# subcommand -> the port's app module, or the ROADMAP.md queue 1 step
+# that ports it (the JAX package's module named beside it)
+_APP_MODULES = {
+    'cluster': '.cluster',
+    'implied': '.implied_timescales',
+    'reassign': '.reassign',
+    'cards': ('collect_cards', '8'),
+    'entropy': ('shannon_entropy', '8'),
+    'smfret-dyes': ('smFRET_dye_MC', '10'),
+    'smfret-clouds': ('smFRET_point_clouds', '10'),
+}
+
+
+def identify_app(argv):
+    """Parse ``argv`` (``['enspara', appname, *appargs]``) into the app's
+    ``main`` and its arguments. Help flags after the app name go to the
+    app's own parser, not the dispatcher's."""
+    parser = argparse.ArgumentParser(
+        prog='enspara',
+        formatter_class=argparse.ArgumentDefaultsHelpFormatter,
+        description='Main entry point for enspara_tpu_torch apps.')
+    parser.add_argument('appname', choices=set(_APP_MODULES),
+                        help='Name of the application.')
+    parser.add_argument('appargs', nargs=argparse.REMAINDER,
+                        help='Arguments to the app.')
+
+    # help flags beyond position 1 belong to the app's parser: set them
+    # aside and re-append after parsing
+    deferred = []
+    kept = argv[:2]
+    for tok in argv[2:]:
+        (deferred if tok in ('--help', '-h') else kept).append(tok)
+    argv[:] = kept
+
+    args = parser.parse_args(argv[1:])
+    target = _APP_MODULES[args.appname]
+    if isinstance(target, tuple):
+        from .cluster import _not_ported
+        raise _not_ported('The %s app (enspara_tpu/apps/%s.py)'
+                          % (args.appname, target[0]), target[1])
+    args.main = importlib.import_module(target, package=__package__).main
+    args.appargs.extend(deferred)
+    return args
+
+
+def main(argv=None):
+    args = identify_app(sys.argv if argv is None else argv)
+    try:
+        # [appname] + appargs is the app's full argv, the help flags
+        # identify_app set aside included
+        args.main([args.appname] + args.appargs)
+    except Exception:
+        sys.stderr.write(
+            'An unexpected error has occurred; please consider filing '
+            'an issue at the project issue tracker.\n')
+        raise
+    return 0
+
+
+if __name__ == '__main__':
+    sys.exit(main(sys.argv))

@@ -1,4 +1,5 @@
-"""Clustering by RMSD: k-centers, k-medoids and k-hybrid."""
+"""Clustering by RMSD or by feature distances: k-centers, k-medoids and
+k-hybrid."""
 
 from .util import (ClusterResult, assign_to_nearest_center,  # noqa: F401
                    find_cluster_centers)

@@ -1,8 +1,22 @@
-"""Device clustering engine for metric 'rmsd' (counterpart of the
-single-device paths of ``enspara_tpu/cluster/engine.py``): k-centers
-and the batched nearest-center assignment.
+"""Device clustering engine (counterpart of
+``enspara_tpu/cluster/engine.py``): k-centers and the batched
+nearest-center assignment, by QCP RMSD of coordinates or by the
+euclidean, manhattan (cityblock) and hamming distances of feature
+vectors.
 
-Frames are ingested once into the kernels' layout: ``(3*A_pad, n_pad)``
+Feature vectors (:func:`prepare_sharded`, :class:`PreparedFeatures`)
+lie as ``(n_pad, d)`` rows, float32 (int32 for hamming), on one device
+or cut into the contiguous blocks of a mesh. Their k-centers loop
+(:func:`kcenters_device`) is the JAX package's ``_kcenters_loop``
+(``engine.py:79-116``) in torch ops: the distance to one frame in the
+difference form, the first-max argmax, a strict ``<`` update, ``-inf``
+on pad frames; ``CHUNK`` iterations run between host reads, a device
+flag freezing the state once the stop rule holds. Their assignment
+takes the Gram form for euclidean (:mod:`enspara_tpu_torch.ops.
+distances`), so a center frame's own distance there is about
+``sqrt(eps * |x|^2)``, not 0, as in the JAX package.
+
+RMSD frames are ingested once into the kernels' layout: ``(3*A_pad, n_pad)``
 float32 with row ``i*A_pad + a`` holding coordinate ``i`` of atom ``a``
 and the frame axis minor, plus a per-frame G row. A host loop then runs
 the k-centers chunk (:mod:`enspara_tpu_torch.ops.kcenters_step`, the
@@ -38,20 +52,24 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..ops.distances import distance_to_point, pairwise_distance
 from ..ops.kcenters_step import (kcenters_chunk, kcenters_iteration_skip,
                                  skip_t_pad, start_state, tile_summaries)
 from ..ops.qcp_matrix import (TILE_C, pad_centers, pad_frames,
                               qcp_rmsd_matrix_block, to_layout)
 from ..ops.qcp_update import kcenters_iteration
-from ..parallel.mesh import host_fetch, pad_to_multiple
+from ..parallel.mesh import host_fetch, pad_to_multiple, shard_frames
 from ..util.device import resolve_device
 
 __all__ = ['KCentersDeviceResult', 'PreparedRMSDFrames', 'ShardedRMSDFrames',
-           'prepare_rmsd_frames', 'kcenters_device_fused', 'assign_device']
+           'PreparedFeatures', 'ShardedFeatures', 'prepare_rmsd_frames',
+           'prepare_sharded', 'kcenters_device', 'kcenters_device_fused',
+           'assign_device']
 
-METRIC_TODO = ("only metric 'rmsd' is ported, got %r: the euclidean, "
-               'manhattan and hamming metrics are ROADMAP.md queue 1 '
-               'step 5b')
+FEATURE_METRICS = ('euclidean', 'manhattan', 'cityblock', 'hamming')
+METRICS = FEATURE_METRICS + ('rmsd',)
+# centers per block of the feature assignment
+ASSIGN_BLOCK = 512
 
 # frames per tile: one CUDA block of one thread per frame
 TILE = 256
@@ -78,6 +96,52 @@ class PreparedRMSDFrames(NamedTuple):
     n_atoms: int               # real atom count
     tile: int
 
+    @property
+    def metric(self):
+        return 'rmsd'
+
+    @property
+    def device(self):
+        return self.g.device
+
+    @property
+    def n_pad(self):
+        return int(self.frames_r.shape[1])
+
+
+class PreparedFeatures(NamedTuple):
+    """Feature vectors on one device, as :func:`prepare_sharded` lays
+    them out for ``metric``: ``(n_pad, d)`` float32 rows (int32 for
+    hamming), zero rows past ``n``."""
+    data: torch.Tensor         # (n_pad, d)
+    n: int                     # real frame count
+    metric: str
+
+    @property
+    def device(self):
+        return self.data.device
+
+    @property
+    def n_pad(self):
+        return int(self.data.shape[0])
+
+
+class ShardedFeatures(NamedTuple):
+    """Feature vectors cut into the contiguous frame blocks of a mesh
+    (the JAX package's ``P('frames')`` layout): ``shards`` holds this
+    process's blocks, each a :class:`PreparedFeatures` on its device of
+    ``n_local`` rows, shard s holding global frames
+    ``[s*n_local, (s+1)*n_local)``."""
+    shards: tuple              # PreparedFeatures, one per local shard
+    n: int                     # real frame count
+    metric: str
+    n_shards: int              # shards of the whole mesh
+    first_shard: int = 0       # global index of shards[0]
+
+    @property
+    def n_local(self):
+        return self.shards[0].n_pad
+
 
 class ShardedRMSDFrames(NamedTuple):
     """Frames ingested once into the k-centers layout, cut into the
@@ -96,6 +160,10 @@ class ShardedRMSDFrames(NamedTuple):
     @property
     def n_local(self):
         return int(self.shards[0].frames_r.shape[1])
+
+    @property
+    def metric(self):
+        return 'rmsd'
 
 
 def _layout(X, n_pad, a_pad):
@@ -162,11 +230,72 @@ def _prepare_sharded(X, tile, mesh):
                              mesh.first_shard)
 
 
-def _prepared(X, tile, device, mesh):
-    """``X`` when it is already prepared for ``mesh`` (raising when its
-    shard count or tile disagree), else ``X`` prepared."""
-    if isinstance(X, (PreparedRMSDFrames, ShardedRMSDFrames)):
-        got = X.n_shards if isinstance(X, ShardedRMSDFrames) else 1
+def _prepare_data(X, metric):
+    """Shape and dtype checks (JAX ``engine.py:124-139``): ``(n,
+    n_atoms, 3)`` float32 for 'rmsd', ``(n, d)`` int32 for hamming and
+    float32 for the other metrics. Host data stays on the host; a
+    tensor keeps its device."""
+    if not isinstance(X, torch.Tensor):
+        X = np.asarray(X)
+    if metric == 'rmsd':
+        if X.ndim != 3 or X.shape[-1] != 3:
+            raise ValueError("metric='rmsd' requires (n, n_atoms, 3) "
+                             'coordinates, got %s' % (tuple(X.shape),))
+    elif X.ndim != 2:
+        raise ValueError('metric=%r requires (n, n_features) feature '
+                         'vectors, got %s' % (metric, tuple(X.shape)))
+    if isinstance(X, torch.Tensor):
+        return X.to(torch.int32 if metric == 'hamming' else torch.float32)
+    return X.astype(np.int32 if metric == 'hamming' else np.float32,
+                    copy=False)
+
+
+def prepare_sharded(X, metric, mesh=None, device=None):
+    """Ingest frames once for ``metric`` (JAX ``engine.py:142-159``):
+    feature vectors as a :class:`PreparedFeatures` on ``device``
+    (default: where a tensor ``X`` lies, the card for host data) or,
+    given a mesh of more than one shard, a :class:`ShardedFeatures` of
+    zero-padded contiguous blocks; 'rmsd' coordinates through
+    :func:`prepare_rmsd_frames`. Returns the container, where the JAX
+    function returns ``(sharded array, n)``."""
+    if metric == 'rmsd':
+        return prepare_rmsd_frames(X, device=device, mesh=mesh)
+    data = _prepare_data(X, metric)
+    if mesh is not None:
+        if device is not None:
+            raise ValueError('pass device= or mesh=, not both')
+        if mesh.size > 1:
+            shards, n = shard_frames(data, mesh)
+            n_local = shards[0].shape[0]
+            return ShardedFeatures(tuple(
+                PreparedFeatures(sh, min(max(n - (mesh.first_shard + s)
+                                             * n_local, 0), n_local), metric)
+                for s, sh in enumerate(shards)), n, metric, mesh.size,
+                mesh.first_shard)
+        device = mesh.devices[0]
+    return PreparedFeatures(
+        torch.as_tensor(data, device=resolve_device(X, device)), len(data),
+        metric)
+
+
+def _canonical(metric):
+    return 'manhattan' if metric == 'cityblock' else metric
+
+
+_PREPARED = (PreparedRMSDFrames, ShardedRMSDFrames, PreparedFeatures,
+             ShardedFeatures)
+
+
+def _prepared(X, metric, device=None, mesh=None, tile=None):
+    """``X`` when it is already prepared for ``metric`` and ``mesh``
+    (raising when its metric, shard count or tile disagree), else ``X``
+    prepared."""
+    if isinstance(X, _PREPARED):
+        if _canonical(X.metric) != _canonical(metric):
+            raise ValueError('frames prepared for metric %r, got metric=%r'
+                             % (X.metric, metric))
+        got = X.n_shards if isinstance(
+            X, (ShardedRMSDFrames, ShardedFeatures)) else 1
         expect = 1 if mesh is None else mesh.size
         if got != expect:
             raise ValueError('prepared frames were laid out for %d '
@@ -175,8 +304,10 @@ def _prepared(X, tile, device, mesh):
             raise ValueError('prepared frames use tile=%d, got tile=%d'
                              % (X.tile, tile))
         return X
-    return prepare_rmsd_frames(X, tile=tile or TILE, device=device,
-                               mesh=mesh)
+    if metric == 'rmsd':
+        return prepare_rmsd_frames(X, tile=tile or TILE, device=device,
+                                   mesh=mesh)
+    return prepare_sharded(X, metric, mesh=mesh, device=device)
 
 
 def _kcenters_loop(prep, dist, assig, n_start, n_clusters, dist_cutoff,
@@ -350,7 +481,7 @@ def kcenters_device_fused(X, n_clusters=None, dist_cutoff=None,
     Returns a :class:`KCentersDeviceResult` of host arrays (on every
     process of a mesh that spans processes).
     """
-    prep = _prepared(X, tile, device, mesh)
+    prep = _prepared(X, 'rmsd', device, mesh, tile)
     n = prep.n
     sharded = isinstance(prep, ShardedRMSDFrames)
     n_pad = prep.n_local * prep.n_shards if sharded \
@@ -400,10 +531,174 @@ def kcenters_device_fused(X, n_clusters=None, dist_cutoff=None,
                                 assigs.astype(np.int64), ctr_inds, n_found)
 
 
-def require_rmsd(metric):
-    """Raise ``NotImplementedError`` for any metric but 'rmsd'."""
-    if metric != 'rmsd':
-        raise NotImplementedError(METRIC_TODO % (metric,))
+def _feature_shards(prep):
+    return prep.shards if isinstance(prep, ShardedFeatures) else (prep,)
+
+
+def _kcenters_loop_features(prep, dist, assig, n_start, n_clusters,
+                            dist_cutoff, k_max, mesh=None):
+    """The k-centers loop of the JAX package's ``_kcenters_loop``
+    (``engine.py:79-116``) over feature vectors, on one device or over
+    the shards of ``mesh``.
+
+    ``prep`` is a :class:`PreparedFeatures` (``mesh=None``) or a
+    :class:`ShardedFeatures` laid out for ``mesh``; ``dist``/``assig`` are lists of this process's per-shard (n_local,)
+    float32/int32 state (-inf past the real frames), rebound in place.
+    Each iteration takes the first max of the distances as the next
+    center (over a mesh: each shard's max and first argmax, then the
+    global first max of :func:`_global_best`, the owner's row summed
+    into every shard), measures every frame against it in the
+    difference form and keeps the strictly smaller distance. The host
+    reads ``(i, md)`` once per ``CHUNK`` iterations; a device flag
+    leaves the state untouched past the stop rule (``n_clusters``
+    centers, or ``max(dist) <= dist_cutoff``).
+
+    Returns ``(ctr (k_max,) int32, n_found)``; ``ctr`` holds -1 in the
+    warm-start slots.
+    """
+    shards = _feature_shards(prep)
+    lead = shards[0].device if mesh is None else mesh.lead
+    n_local = shards[0].n_pad
+    first = prep.first_shard if mesh is not None else 0
+    starts = torch.arange(first, first + len(shards), dtype=torch.int32,
+                          device=lead) * n_local
+    shard_ids = torch.arange(first, first + len(shards), dtype=torch.int32,
+                             device=lead)
+    cutoff = float(np.float32(dist_cutoff))
+
+    def best():
+        """(md, gidx): the max distance and its first global index."""
+        if mesh is None:
+            md, arg = dist[0].max(0)
+            return md, arg.to(torch.int32)
+        lm, la = zip(*(d.max(0) for d in dist))
+        md, gidx = _global_best(mesh, lm, [a.to(torch.int32) for a in la],
+                                starts)
+        return md.reshape(()), gidx.reshape(())
+
+    def center_row(gidx):
+        """The center's (1, d) row, on the lead device."""
+        if mesh is None:
+            return shards[0].data.index_select(0, gidx.reshape(1).long())
+        owner = torch.div(gidx, n_local, rounding_mode='floor')
+        lidx = (gidx - owner * n_local).reshape(1).long()
+        parts = []
+        for s, sh in enumerate(shards):
+            row = sh.data.index_select(0, lidx.to(sh.device)).to(lead)
+            parts.append(torch.where(shard_ids[s] == owner, row,
+                                     torch.zeros_like(row)))
+        return mesh.all_reduce(torch.stack(parts).sum(0, dtype=row.dtype))
+
+    i = torch.full((), int(n_start), dtype=torch.int32, device=lead)
+    # slot k_max takes the writes of the iterations past the stop
+    ctr = torch.full((k_max + 1,), -1, dtype=torch.int32, device=lead)
+    md, gidx = best()
+    while True:
+        h = torch.stack((i.double(), md.double())).cpu()
+        n_found, md_h = int(h[0]), float(h[1])
+        if n_found >= n_clusters or not md_h > cutoff:
+            break
+        for _ in range(min(CHUNK, n_clusters - n_found)):
+            go = (i < n_clusters) & (md > cutoff)
+            ctr.index_put_((torch.where(go, i, k_max).reshape(1).long(),),
+                           gidx.reshape(1))
+            row = center_row(gidx)
+            for s, sh in enumerate(shards):
+                g1, i1 = go.to(sh.device), i.to(sh.device)
+                d_new = distance_to_point(sh.data, row.to(sh.device)[0],
+                                          prep.metric)
+                upd = (d_new < dist[s]) & g1
+                dist[s] = torch.where(upd, d_new, dist[s])
+                assig[s] = torch.where(upd, i1, assig[s])
+            md, gidx = best()
+            i = i + go.to(torch.int32)
+    return ctr[:k_max], n_found
+
+
+def kcenters_device(X, metric='euclidean', n_clusters=None,
+                    dist_cutoff=None, k_max=None, init_distances=None,
+                    init_assignments=None, n_init_centers=0,
+                    init_center_indices=None, mesh=None, precision=None,
+                    sort=None, device=None):
+    """K-centers on one device or over the shards of ``mesh`` (JAX
+    ``engine.py:162-257``, same parameters and errors, plus the port's
+    ``device=``).
+
+    ``X`` is ``(n, d)`` feature vectors, ``(n, n_atoms, 3)``
+    coordinates for ``metric='rmsd'`` (which runs
+    :func:`kcenters_device_fused`), or a prepared container of either.
+    Stops at ``n_clusters`` centers or once the max distance is ``<=
+    dist_cutoff``; warm starts pass the previous run's
+    ``init_distances``/``init_assignments`` with ``n_init_centers`` and
+    optionally ``init_center_indices``. The results do not depend on the
+    shard count. ``precision='bf16'`` and ``sort='locality'`` are not
+    ported (ROADMAP.md queue 1 step 3); with a feature metric they raise
+    the JAX package's ``ValueError``.
+
+    Returns a :class:`KCentersDeviceResult` of host arrays.
+    """
+    if metric not in METRICS:
+        raise ValueError('device engine supports metrics %s, got %r'
+                         % (sorted(METRICS), metric))
+    if n_clusters is None and dist_cutoff is None:
+        raise ValueError('Either n_clusters or dist_cutoff is required')
+    if metric == 'rmsd':
+        for name, value, ok in (('precision', precision, (None, 'fp32')),
+                                ('sort', sort, (None,))):
+            if value not in ok:
+                raise NotImplementedError(
+                    '%s=%r is not ported to enspara_tpu_torch yet: '
+                    'ROADMAP.md queue 1 step 3' % (name, value))
+        return kcenters_device_fused(
+            X, n_clusters=n_clusters, dist_cutoff=dist_cutoff, k_max=k_max,
+            init_distances=init_distances, init_assignments=init_assignments,
+            n_init_centers=n_init_centers,
+            init_center_indices=init_center_indices, device=device,
+            mesh=mesh)
+    if precision not in (None, 'fp32'):
+        raise ValueError("precision='bf16' requires metric='rmsd' on "
+                         "a TPU backend (the bf16 stream lives in the "
+                         "fused Pallas path)")
+    if sort is not None:
+        raise ValueError("sort='locality' requires metric='rmsd' "
+                         '(the tri-skip layout lives in the fused '
+                         'Pallas path)')
+    prep = _prepared(X, metric, device, mesh)
+    n = prep.n
+    if k_max is None:
+        k_max = int(n_clusters) if n_clusters is not None else n
+    k_max = int(min(k_max, n))
+    n_clusters_eff = int(min(n_clusters or n, k_max))
+    cutoff_eff = float(np.float32(dist_cutoff if dist_cutoff is not None
+                                  else 0.0))
+
+    shards = _feature_shards(prep)
+    sharded = isinstance(prep, ShardedFeatures)
+    n_local = shards[0].n_pad
+    first = prep.first_shard if sharded else 0
+    n_pad = n_local * (prep.n_shards if sharded else 1)
+    dist = np.full(n_pad, np.inf, np.float32)
+    assig = np.full(n_pad, -1, np.int32)
+    if init_distances is not None:
+        dist[:n] = init_distances
+        assig[:n] = init_assignments
+    dist[n:] = -math.inf
+
+    def local(a):
+        return [torch.from_numpy(a[lo:lo + n_local].copy()).to(sh.device)
+                for lo, sh in zip(range((first * n_local), n_pad, n_local),
+                                  shards)]
+    dists, assigs = local(dist), local(assig)
+    ctr, n_found = _kcenters_loop_features(
+        prep, dists, assigs, int(n_init_centers), n_clusters_eff,
+        cutoff_eff, k_max, mesh if sharded else None)
+    dists = host_fetch(dists, mesh)[:n]
+    assigs = host_fetch(assigs, mesh)[:n]
+    ctr_inds = ctr[:n_found].cpu().numpy().astype(np.int64)
+    if init_center_indices is not None:
+        ctr_inds[:n_init_centers] = init_center_indices
+    return KCentersDeviceResult(dists.astype(np.float64),
+                                assigs.astype(np.int64), ctr_inds, n_found)
 
 
 # ---------------------------------------------------------------------
@@ -439,11 +734,21 @@ def _gather(prep, idx, width):
     return cols, g
 
 
-def _pairwise_block(prep, cols, rows=None, metric='rmsd'):
-    """RMSD of frames ``rows`` (default: all ``n_pad`` of them) to
-    frames ``cols`` of ``prep``, ``(n_rows, len(cols))`` float32: one
-    all-pairs block, the CUDA kernel on the card."""
-    require_rmsd(metric)
+def _pairwise_block(prep, cols, rows=None):
+    """Distances of frames ``rows`` (default: all ``n_pad`` of them) to
+    frames ``cols`` of ``prep``, ``(n_rows, len(cols))`` float32, under
+    the metric ``prep`` was prepared for: for RMSD one all-pairs block,
+    the CUDA kernel on the card; for features
+    :func:`~enspara_tpu_torch.ops.distances.pairwise_distance` (the
+    Gram form for euclidean)."""
+    if isinstance(prep, PreparedFeatures):
+        data = prep.data
+        cols = torch.as_tensor(cols, dtype=torch.long, device=prep.device)
+        if rows is not None:
+            rows = torch.as_tensor(rows, dtype=torch.long,
+                                   device=prep.device)
+        return pairwise_distance(data if rows is None else data[rows],
+                                 data[cols], prep.metric)
     if rows is None:
         fr, gf = _all_frames(prep)
         n_rows = prep.frames_r.shape[1]
@@ -483,6 +788,29 @@ def _assign_all_rmsd(prep, centers):
     return best_i, best_d
 
 
+def _assign_all(data, centers, metric):
+    """Every row of ``data`` (n_pad, d) to its nearest row of
+    ``centers`` (k, d) on data's device (JAX ``engine.py:264-331``):
+    blocks of ``min(ASSIGN_BLOCK, k)`` centers carrying the running
+    (min, first argmin), a strict ``<`` between blocks, so that the
+    lowest index wins a tie. Peak memory is one (n_pad, block) block.
+    Returns ``(assigs (n_pad,) int32, dists (n_pad,) float32)``."""
+    k = int(centers.shape[0])
+    block = min(ASSIGN_BLOCK, k)
+    best_d = torch.full((data.shape[0],), math.inf, dtype=torch.float32,
+                        device=data.device)
+    best_i = torch.zeros((data.shape[0],), dtype=torch.int32,
+                         device=data.device)
+    for lo in range(0, k, block):
+        d = pairwise_distance(data, centers[lo:lo + block], metric)
+        local_min, local_arg = d.min(dim=1)
+        del d
+        upd = local_min < best_d
+        best_d = torch.where(upd, local_min, best_d)
+        best_i = torch.where(upd, (local_arg + lo).to(torch.int32), best_i)
+    return best_i, best_d
+
+
 def _centers_tensor(centers, prep):
     C = torch.as_tensor(np.asarray(centers) if not isinstance(
         centers, torch.Tensor) else centers, dtype=torch.float32,
@@ -493,26 +821,40 @@ def _centers_tensor(centers, prep):
     return _center_structures(C)
 
 
-def assign_device(X, centers, metric='rmsd', device=None, mesh=None):
+def assign_device(X, centers, metric='euclidean', device=None, mesh=None):
     """Assign every frame to its nearest center: the batched device
-    form of ``assign_to_nearest_center``.
+    form of ``assign_to_nearest_center`` (JAX ``engine.py:406``, whose
+    default metric this keeps).
 
-    ``X`` is ``(n, n_atoms, 3)`` coordinates (numpy or a tensor),
-    prepared on ``device`` (default: where a tensor ``X`` lies, the card
-    for host data) or over the shards of ``mesh``, or a
-    :class:`PreparedRMSDFrames` or :class:`ShardedRMSDFrames`;
-    ``centers`` is ``(k, n_atoms, 3)``. Frames and centers are centered
-    on the device. Over a mesh each shard assigns its own frames (the
-    all-pairs kernel per shard, centers replicated), with no
-    communication until the results are gathered. Only
-    ``metric='rmsd'`` is ported.
+    ``X`` is ``(n, d)`` feature vectors or, for ``metric='rmsd'``,
+    ``(n, n_atoms, 3)`` coordinates (numpy or a tensor), prepared on
+    ``device`` (default: where a tensor ``X`` lies, the card for host
+    data) or over the shards of ``mesh``, or a container prepared for
+    the metric (:class:`PreparedFeatures`, :class:`ShardedFeatures`,
+    :class:`PreparedRMSDFrames`, :class:`ShardedRMSDFrames`); ``centers``
+    is ``(k, d)`` or ``(k, n_atoms, 3)``. RMSD frames and centers are
+    centered on the device, and their blocks are the all-pairs kernel.
+    Over a mesh each shard assigns its own frames, centers replicated,
+    with no communication until the results are gathered.
 
     Returns ``(assignments (n,) int64, distances (n,) float64)`` as
     numpy arrays.
     """
-    require_rmsd(metric)
-    prep = _prepared(X, None, device, mesh)
-    if isinstance(prep, ShardedRMSDFrames):
+    if metric not in METRICS:
+        raise ValueError('device engine supports metrics %s, got %r'
+                         % (sorted(METRICS), metric))
+    prep = _prepared(X, metric, device, mesh)
+    if metric != 'rmsd':
+        C = _prepare_data(centers, metric)
+        shards = _feature_shards(prep)
+        if C.shape[1] != shards[0].data.shape[1]:
+            raise ValueError('centers must be (k, %d), got %s'
+                             % (shards[0].data.shape[1], tuple(C.shape)))
+        out = [_assign_all(sh.data, torch.as_tensor(C, device=sh.device),
+                           metric) for sh in shards]
+        assigs = host_fetch([a for a, _ in out], mesh)
+        dists = host_fetch([d for _, d in out], mesh)
+    elif isinstance(prep, ShardedRMSDFrames):
         out = [_assign_all_rmsd(sh, _centers_tensor(centers, sh))
                for sh in prep.shards]
         assigs = host_fetch([a for a, _ in out], mesh)

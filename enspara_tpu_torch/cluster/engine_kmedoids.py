@@ -8,8 +8,9 @@ exact second-nearest ``(d2, a2)``, so a proposal that replaces medoid
 selects: members of ``cid`` get ``min(d2, dnew)``, everyone else
 ``min(d1, dnew)``. Proposals for ``batch`` consecutive medoids are
 sampled together (a uniform member of each cluster, as of the batch
-start), their columns computed as one ``(n, batch)`` all-pairs block
-(the CUDA kernel on the card), and screened for the whole batch; the
+start), their columns computed as one ``(n, batch)`` block
+(``engine._pairwise_block``: for RMSD the all-pairs CUDA kernel on the
+card, for features ``ops.distances``), and screened for the whole batch; the
 survivors are verified exactly against the live cache before they
 commit. An accept only marks the points whose ``(d2, a2)`` became upper
 bounds as stale; a bucketed k-way re-rank repairs them on demand and at
@@ -59,8 +60,8 @@ def _pam_sweeps(prep, d1, a1, medoid_inds, sweep_bits, bucket, batch=64):
     values per sweep (the JAX module draws ``jax.random.bits(fold_in(
     key, s), (n_pad,), uint32)``). Returns ``(d1, a1, medoid_inds)``.
     """
-    dev = prep.g.device
-    n_pad = prep.frames_r.shape[1]
+    dev = prep.device
+    n_pad = prep.n_pad
     valid = torch.arange(n_pad, device=dev) < prep.n
     n_valid = int(prep.n)
     medoid_inds = torch.as_tensor(medoid_inds, dtype=torch.long,
@@ -208,9 +209,11 @@ def kmedoids_sweeps_device(X, metric, assignments, distances, medoid_inds,
 
     Parameters
     ----------
-    X : (n, n_atoms, 3) coordinates (numpy or a tensor) or a
-        :class:`~enspara_tpu_torch.cluster.engine.PreparedRMSDFrames`.
-    metric : 'rmsd' (the only one ported).
+    X : (n, d) features or (n, n_atoms, 3) coordinates (numpy or a
+        tensor), or a one-device container prepared for ``metric``
+        (:class:`~enspara_tpu_torch.cluster.engine.PreparedFeatures`,
+        :class:`~enspara_tpu_torch.cluster.engine.PreparedRMSDFrames`).
+    metric : 'rmsd' | 'euclidean' | 'manhattan' | 'hamming'.
     assignments, distances : warm-start state (e.g. from k-centers).
     medoid_inds : (k,) current medoid frame indices.
     bucket_factor : ambiguous-bucket size in units of n/k.
@@ -221,11 +224,9 @@ def kmedoids_sweeps_device(X, metric, assignments, distances, medoid_inds,
 
     Returns ``(medoid_inds, distances, assignments)`` as numpy arrays.
     """
-    engine.require_rmsd(metric)
-    prep = X if isinstance(X, engine.PreparedRMSDFrames) \
-        else engine.prepare_rmsd_frames(X, device=device)
-    dev = prep.g.device
-    n, n_pad = prep.n, prep.frames_r.shape[1]
+    prep = engine._prepared(X, metric, device)
+    dev = prep.device
+    n, n_pad = prep.n, prep.n_pad
     k = len(medoid_inds)
     bucket = int(min(n, max(64, bucket_factor * ((n + k - 1) // k))))
 

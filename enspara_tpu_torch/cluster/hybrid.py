@@ -89,15 +89,15 @@ def hybrid(X, distance_method, n_iters=5, n_clusters=None,
 def hybrid_device(X, metric='rmsd', n_iters=5, n_clusters=None,
                   dist_cutoff=None, seed=0, bucket_factor=8, device=None):
     """K-hybrid with both stages on the device: the k-centers loop seeds
-    the device PAM sweeps, from frames prepared on the device once.
+    the device PAM sweeps, from frames prepared on the device once, for
+    any named metric.
 
     Returns a ClusterResult (centers gathered host-side at the end).
     """
-    engine.require_rmsd(metric)
     xyz = X.xyz if hasattr(X, 'xyz') else X
-    prep = engine.prepare_rmsd_frames(xyz, device=device)
-    res = engine.kcenters_device_fused(prep, n_clusters=n_clusters,
-                                       dist_cutoff=dist_cutoff)
+    prep = engine.prepare_sharded(xyz, metric, device=device)
+    res = engine.kcenters_device(prep, metric, n_clusters=n_clusters,
+                                 dist_cutoff=dist_cutoff)
     m, d, a = kmedoids_sweeps_device(
         prep, metric, res.assignments, res.distances, res.center_indices,
         n_sweeps=n_iters, seed=seed, bucket_factor=bucket_factor)

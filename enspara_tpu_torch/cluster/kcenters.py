@@ -2,13 +2,14 @@
 ``enspara_tpu/cluster/kcenters.py``).
 
 Metric 'rmsd' runs in :func:`enspara_tpu_torch.cluster.engine.
-kcenters_device_fused` (the tri-skip CUDA kernel on the card); a warm
-start from ``init_centers`` assigns the frames to them first through
-:func:`~enspara_tpu_torch.cluster.engine.assign_device` (the all-pairs
-CUDA kernel). With ``mesh=`` (a
-:class:`~enspara_tpu_torch.parallel.mesh.FrameMesh`) the frames are
-sharded over it and both run per shard, k-centers with the sharded loop.
-Callable metrics run the host loop with the reference's semantics.
+kcenters_device_fused` (the tri-skip CUDA kernel on the card); the
+feature metrics ('euclidean', 'manhattan', 'hamming') in the torch-op
+loop of :func:`~enspara_tpu_torch.cluster.engine.kcenters_device`. A
+warm start from ``init_centers`` assigns the frames to them first
+through :func:`~enspara_tpu_torch.cluster.engine.assign_device`. With
+``mesh=`` (a :class:`~enspara_tpu_torch.parallel.mesh.FrameMesh`) the
+frames are sharded over it and both run per shard. Callable metrics run
+the host loop with the reference's semantics.
 """
 
 import logging
@@ -32,7 +33,8 @@ class KCenters(util.MolecularClusterMixin):
 
     Parameters
     ----------
-    metric : 'rmsd' or a callable ``f(X, center) -> distances``
+    metric : 'rmsd', 'euclidean', 'manhattan', 'hamming', or a callable
+        ``f(X, center) -> distances``
     n_clusters : int, optional
     cluster_radius : float, optional
         Stop adding centers once the max frame-center distance falls to
@@ -88,7 +90,8 @@ def kcenters(traj, distance_method, n_clusters=None, dist_cutoff=None,
              init_centers=None, random_first_center=False,
              random_state=None, device=None, mesh=None):
     """Functional k-centers. ``traj`` is ``(n, n_atoms, 3)`` coordinates
-    (numpy, a tensor, or anything with ``.xyz``), clustered on
+    (numpy, a tensor, or anything with ``.xyz``) or, for the feature
+    metrics, ``(n, d)`` feature vectors, clustered on
     ``device`` or, given ``mesh``, sharded over its shards (the results
     do not depend on the shard count).
 
@@ -156,8 +159,7 @@ def _reject_ownerless(init_ctr_inds, n_init, init_assignments):
 
 def _kcenters_fast(X, metric, n_clusters, dist_cutoff, init_centers,
                    device, mesh=None):
-    engine.require_rmsd(metric)
-    prep = engine.prepare_rmsd_frames(X, device=device, mesh=mesh)
+    prep = engine.prepare_sharded(X, metric, mesh=mesh, device=device)
     n_init = 0
     init_distances = init_assignments = init_ctr_inds = None
     init_center_data = []
@@ -172,8 +174,8 @@ def _kcenters_fast(X, metric, n_clusters, dist_cutoff, init_centers,
                                                   init_distances)
         _reject_ownerless(init_ctr_inds, n_init, init_assignments)
 
-    res = engine.kcenters_device_fused(
-        prep, n_clusters=n_clusters, dist_cutoff=dist_cutoff,
+    res = engine.kcenters_device(
+        prep, metric, n_clusters=n_clusters, dist_cutoff=dist_cutoff,
         init_distances=init_distances, init_assignments=init_assignments,
         n_init_centers=n_init, init_center_indices=init_ctr_inds,
         mesh=mesh)

@@ -3,7 +3,8 @@
 
 Data on a CUDA device runs the PAM sweeps on the card
 (:func:`enspara_tpu_torch.cluster.engine_kmedoids.
-kmedoids_sweeps_device`, on the all-pairs CUDA kernel); data on the CPU,
+kmedoids_sweeps_device`: the all-pairs CUDA kernel for 'rmsd', the
+distances of ``ops.distances`` for the feature metrics); data on the CPU,
 explicit proposals and callable metrics run the host PAM path, which
 keeps the reference's exact update (the 3-case mask logic) and its
 random stream.
@@ -31,7 +32,7 @@ class KMedoids(util.MolecularClusterMixin):
 
     Parameters
     ----------
-    metric : 'rmsd' or a callable
+    metric : 'rmsd', 'euclidean', 'manhattan', 'hamming', or a callable
     n_clusters : int, optional (required unless warm-starting fit())
     n_iters : int, default=5
         Number of PAM sweeps.
@@ -111,7 +112,7 @@ def _xyz(X):
 
 def _assign_to_inds(X, metric, center_inds, device=None):
     """Assign every frame to the frames at ``center_inds``: the batched
-    device assignment for 'rmsd', the host loop for callables."""
+    device assignment for named metrics, the host loop for callables."""
     name = util._metric_name(metric)
     if name is not None:
         xyz = _xyz(X)
@@ -148,7 +149,7 @@ def _kmedoids_iterations(X, metric, n_iters, cluster_center_inds,
 
     ``backend='auto'`` runs the sweeps on the device when the data is on
     a CUDA device (a CUDA tensor, or host data with a CUDA ``device``),
-    the metric is 'rmsd' and no explicit proposals were given; the host
+    the metric is a named one and no explicit proposals were given; the host
     path runs otherwise or with ``backend='host'``. The two draw
     proposals from different generators, so they agree in distribution,
     not bit for bit.
@@ -260,8 +261,8 @@ def _kmedoids_pam_update(X, metric, medoid_inds, assignments, distances,
         new_dist[dst_up_other] = distances[dst_up_other]
 
         # case 3: farther, but the frame was assigned to cid -> must be
-        # re-assigned against ALL medoids (with cid replaced): for 'rmsd'
-        # one batched device call over the ambiguous subset
+        # re-assigned against ALL medoids (with cid replaced): for a
+        # named metric one batched device call over the ambiguous subset
         dst_up_this = (distances <= new_ctr_dist) & (assignments == cid)
         new_medoids = medoid_coords.copy()
         new_medoids[cid] = proposed_center

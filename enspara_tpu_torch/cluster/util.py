@@ -3,8 +3,8 @@ the results container, nearest-center assignment, metric dispatch, and
 the data loaders, writers and reassignment the CLI apps use.
 
 Trajectory I/O is the port's own host code (``io``, ``util.load``,
-``ra``). Only metric 'rmsd' and callables are ported; the feature
-metrics and ``--features`` are ROADMAP.md queue 1 step 5b.
+``ra``); the named feature metrics dispatch to ``geometry.libdist`` on
+the host and to ``cluster.engine`` on the device.
 """
 
 import logging
@@ -19,6 +19,7 @@ import torch
 from .. import io as io_mod
 from .. import native, ra
 from ..exception import DataInvalid, ImproperlyConfigured
+from ..geometry import libdist
 from ..ops.qcp_matrix import pairwise_rmsd
 from ..ra.ra import partition_indices, partition_list
 from ..util.device import resolve_device
@@ -32,10 +33,6 @@ logger = logging.getLogger(__name__)
 __all__ = ['ClusterResult', 'gather_frames', 'run_timed',
            'assign_to_nearest_center', 'find_cluster_centers',
            'MolecularClusterMixin']
-
-FEATURES_TODO = ('--features and feature metrics are not ported: ROADMAP.md '
-                 'queue 1 step 5b')
-
 
 class ClusterResult(namedtuple('ClusterResult',
                                ['center_indices', 'distances',
@@ -134,12 +131,16 @@ def _rmsd_metric(trajectory, center):
 
 
 def _get_distance_method(metric):
-    """'rmsd' -> the QCP metric; callables pass through; the feature
-    metrics are not ported."""
+    """'rmsd' -> the QCP metric; named vector metrics -> libdist;
+    callables pass through (JAX ``cluster/util.py:131-146``)."""
     if metric == 'rmsd':
         return _rmsd_metric
-    if metric in ('euclidean', 'cityblock', 'manhattan', 'hamming'):
-        raise NotImplementedError(engine.METRIC_TODO % (metric,))
+    if metric == 'euclidean':
+        return libdist.euclidean
+    if metric in ('cityblock', 'manhattan'):
+        return libdist.manhattan
+    if metric == 'hamming':
+        return libdist.hamming
     if callable(metric):
         return metric
     raise ImproperlyConfigured(
@@ -153,6 +154,12 @@ def _metric_name(metric):
     if metric in ('rmsd', 'euclidean', 'manhattan', 'cityblock',
                   'hamming'):
         return 'manhattan' if metric == 'cityblock' else metric
+    if metric is libdist.euclidean:
+        return 'euclidean'
+    if metric is libdist.manhattan:
+        return 'manhattan'
+    if metric is libdist.hamming:
+        return 'hamming'
     if metric is _rmsd_metric:
         return 'rmsd'
     return None
@@ -262,11 +269,30 @@ def load_trajectories(topologies, trajectories, selections, stride,
     return lengths, xyz, top.subset(indices)
 
 
+def load_features(features, stride):
+    """Load feature arrays: one ``.h5`` RaggedArray file or many
+    ``.npy`` files, memory-mapped so that a stride reads only its rows
+    (JAX ``cluster/util.py:228-246``). Returns ``(lengths, data)``."""
+    if len(features) == 1:
+        data = ra.load(features[0], stride=stride)
+        if isinstance(data, ra.RaggedArray):
+            return list(data.lengths), data._data
+        return [len(data)], np.asarray(data)
+    rows = [np.asarray(np.load(f, mmap_mode='r')[::stride])
+            for f in features]
+    inner = set(r.shape[1:] for r in rows)
+    if len(inner) > 1:
+        raise DataInvalid(
+            'Feature files had inconsistent widths: %s' % inner)
+    lengths = [len(r) for r in rows]
+    return lengths, np.concatenate(rows).astype(np.float32)
+
+
 def load_trjs_or_features(args):
-    """Load the CLI's trajectories: ``(lengths, Trajectory)``. Feature
-    inputs are not ported."""
+    """Load the CLI's input: ``(lengths, data)``, data an ndarray of
+    features or a Trajectory."""
     if getattr(args, 'features', None):
-        raise ImproperlyConfigured(FEATURES_TODO)
+        return load_features(args.features, stride=args.subsample)
     assert args.trajectories
     assert len(args.trajectories) == len(args.topologies)
     lengths, xyz, select_top = load_trajectories(
@@ -317,48 +343,87 @@ def load_asymm_frames(center_indices, trajectories, topology, subsample):
     return frames
 
 
-def write_centers_indices(path, indices):
+def _intermediate(path, intermediate_n):
+    """``path`` moved into ``intermediate-<n>/`` beside it (made here),
+    or ``path`` itself when ``intermediate_n`` is None."""
+    if intermediate_n is None:
+        return path
+    d = os.path.join(os.path.dirname(path), 'intermediate-%s' % intermediate_n)
+    os.makedirs(d, exist_ok=True)
+    return os.path.join(d, os.path.basename(path))
+
+
+def write_centers_indices(path, indices, intermediate_n=None):
     """Save the center indices as ``.npy`` (nothing when ``path`` is
-    empty)."""
+    empty), under ``intermediate-<n>/`` given ``intermediate_n``."""
     if not path:
         logger.info('--center-indices not provided, not writing center '
                     'indices to file.')
         return
-    with open(path, 'wb') as f:
+    with open(_intermediate(path, intermediate_n), 'wb') as f:
         np.save(f, indices)
 
 
-def write_centers(result, args):
-    """Pickle the center structures, reloaded from the trajectories at
-    full atom detail."""
+def write_centers(result, args, intermediate_n=None):
+    """Save the centers (JAX ``cluster/util.py:367-389``): feature
+    centers as one array (``.npy``, or ``ra.save`` under
+    ``intermediate-<n>/``); trajectory centers pickled, reloaded from the
+    trajectories at full atom detail."""
     if getattr(args, 'features', None):
-        raise ImproperlyConfigured(FEATURES_TODO)
-    os.makedirs(os.path.dirname(args.center_features) or '.', exist_ok=True)
+        if intermediate_n is not None:
+            ra.save(_intermediate(args.center_features, intermediate_n),
+                    np.asarray(result.centers))
+        else:
+            np.save(args.center_features, np.asarray(result.centers))
+        return
+    outdir = os.path.dirname(args.center_features) or '.'
+    if intermediate_n is not None:
+        outdir = os.path.join(outdir, 'intermediate-%s' % intermediate_n)
+    os.makedirs(outdir, exist_ok=True)
     centers = load_asymm_frames(result.center_indices, args.trajectories,
                                 args.topologies, args.subsample)
     with open(args.center_features, 'wb') as f:
         pickle.dump(centers, f)
 
 
+def reassign_features(result, args, device=None):
+    """Every frame of the full (unsubsampled) ``--features`` assigned
+    to the result's centers, on ``device`` for a named metric, by the
+    host loop otherwise: ``(assignments, distances)`` RaggedArrays."""
+    lengths, data = load_features(args.features, stride=1)
+    centers = np.asarray(result.centers)
+    name = _metric_name(args.cluster_distance)
+    if name is not None:
+        assig, dist = engine.assign_device(data, centers, name,
+                                           device=device)
+    else:
+        assig, dist = assign_to_nearest_center(
+            data, centers, _get_distance_method(args.cluster_distance))
+    return (ra.RaggedArray(assig, lengths=lengths),
+            ra.RaggedArray(dist, lengths=lengths))
+
+
 def write_assignments_and_distances_with_reassign(result, args,
+                                                  intermediate_n=None,
                                                   device=None):
     """Write the cluster app's ``--distances`` and ``--assignments``
-    (``.h5``): the clustering's own for ``--subsample 1``, else every
-    frame of the full trajectories reassigned to the centers on
-    ``device`` (nothing with ``--no-reassign``)."""
+    (``.h5``, under ``intermediate-<n>/`` given ``intermediate_n``): the
+    clustering's own for ``--subsample 1``, else every frame of the full
+    trajectories or features reassigned to the centers on ``device``
+    (nothing with ``--no-reassign``)."""
     if args.subsample == 1:
         assig, dist = result.assignments, result.distances
     elif args.no_reassign:
         logger.debug('Got --no-reassign, not doing reassigment')
         return
+    elif getattr(args, 'features', None):
+        assig, dist = reassign_features(result, args, device=device)
     else:
-        if getattr(args, 'features', None):
-            raise ImproperlyConfigured(FEATURES_TODO)
         assig, dist = reassign(args.topologies, args.trajectories,
                                args.atoms, centers=result.centers,
                                device=device)
-    ra.save(args.distances, dist)
-    ra.save(args.assignments, assig)
+    ra.save(_intermediate(args.distances, intermediate_n), dist)
+    ra.save(_intermediate(args.assignments, intermediate_n), assig)
 
 
 def compute_batches(lengths, batch_size):

@@ -12,7 +12,6 @@ every sparse product is the ELL kernel of
 the host.
 """
 
-import contextlib
 import logging
 import os
 import time
@@ -25,7 +24,7 @@ import torch
 
 from ..ops.sparse import dense_on_device, ell_from_sparse, ell_spmm
 from ..ops.sparse import round_up as _bucket
-from ..util.device import resolve_device
+from ..util.device import full_fp32_matmul, resolve_device
 from .transition_matrices import assigns_to_counts_device
 from .transition_matrices import eigenspectrum as _eigenspectrum_host
 
@@ -233,19 +232,6 @@ def _symmetrized(T, sqrt_pi):
     return ((S + S.T) * 0.5).tocsr()
 
 
-@contextlib.contextmanager
-def _full_fp32_matmul():
-    """Matrix products in full float32 inside the block, whatever the
-    caller set: TF32 keeps about three decimal digits, and the filter's
-    Gram and Rayleigh-Ritz products need all of fp32's."""
-    saved = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = saved
-
-
 def _orth(V, use_qr):
     """Orthonormal basis of the columns of V: three CholeskyQR passes
     (the first shifted), or Householder QR with ``use_qr``. A Cholesky
@@ -439,7 +425,8 @@ def _lobpcg_refined(S, n_eigs, tol=1e-9, max_refine=30, device=None):
 
     # --- stage 1: fp32 filtered subspace iteration on the device
     t0 = time.perf_counter()
-    with _full_fp32_matmul():
+    # the filter's Gram and Rayleigh-Ritz products need all of fp32
+    with full_fp32_matmul():
         V, s1 = _filtered_subspace_device(S, n_eigs, device=device)
     if device.type == 'cuda':
         torch.cuda.synchronize(device)

@@ -15,6 +15,7 @@ same operation order as the JAX module. The k-centers kernel
 import torch
 
 from ..citation import cite
+from ..util.device import full_fp32_matmul
 
 __all__ = [
     'center_coordinates', 'qcp_rmsd_matrix', 'qcp_rmsd_vector',
@@ -32,8 +33,8 @@ def _f32(x):
 def _einsum_fp32(equation, a, b):
     """``torch.einsum`` in full float32: TF32 keeps about three decimal
     digits, far outside the 1e-5 distance bar."""
-    torch.backends.cuda.matmul.allow_tf32 = False
-    return torch.einsum(equation, a, b)
+    with full_fp32_matmul():
+        return torch.einsum(equation, a, b)
 
 
 def center_coordinates(xyz):

@@ -8,9 +8,25 @@ unless ``$ENSPARA_TPU_PLATFORM=cpu``. There is no "cuda else cpu":
 without a card that default raises.
 """
 
+import contextlib
+
 import torch
 
-__all__ = ['require_cuda', 'resolve_device']
+__all__ = ['require_cuda', 'resolve_device', 'full_fp32_matmul']
+
+
+@contextlib.contextmanager
+def full_fp32_matmul():
+    """Matrix products in full float32 inside the block, whatever the
+    caller set, and the caller's ``allow_tf32`` back afterwards: TF32
+    keeps about three decimal digits, far outside the port's distance
+    and eigenvalue bars (the JAX package asks for ``Precision.HIGHEST``)."""
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
 
 
 def require_cuda():

@@ -160,11 +160,17 @@ def test_reassign_cli_matches_jax(tmp_path, cpu_env, lengths):
 @pytest.mark.parametrize('flag,step', [
     (['--precision', 'bf16'], 'step 3'),
     (['--locality-sort'], 'step 3'),
-    (['--checkpoint', 'ckpt'], 'step 5b'),
+    (['--checkpoint', 'ckpt'], 'only implemented for kmedoids'),
 ], ids=['bf16', 'locality_sort', 'checkpoint'])
 def test_cluster_cli_unported_options_raise(tmp_path, cpu_env, flag, step):
+    """bf16 and the locality sort are step 3; a --checkpoint that holds
+    a manifest warm-starts only kmedoids, as in the JAX package."""
     pdb, trjs, _ = write_fixture(tmp_path)
     argv = _cluster_argv(pdb, trjs, _outputs(tmp_path, 'x'), 'kcenters', 1)
+    if flag[0] == '--checkpoint':
+        flag = ['--checkpoint', str(tmp_path / 'ckpt')]
+        (tmp_path / 'ckpt').mkdir()
+        (tmp_path / 'ckpt' / 'manifest.json').write_text('{}')
     with pytest.raises(ImproperlyConfigured, match=step):
         cluster.process_command_line(argv + flag)
 
@@ -173,12 +179,13 @@ def test_cluster_cli_features_and_multihost_raise(tmp_path, cpu_env,
                                                   monkeypatch):
     out = _outputs(tmp_path, 'x')
     argv = ['cluster', '--features', str(tmp_path / 'f.h5'),
-            '--algorithm', 'kcenters', '--cluster-number', '3',
-            '--cluster-distance', 'euclidean']
+            '--algorithm', 'kcenters', '--cluster-number', '3']
     for k, v in out.items():
         argv += [k, v]
-    with pytest.raises(ImproperlyConfigured, match='step 5b'):
-        cluster.process_command_line(argv)
+    # --features takes a feature distance, as in the JAX package
+    with pytest.raises(ImproperlyConfigured, match='not compatible'):
+        cluster.process_command_line(argv + ['--cluster-distance', 'rmsd'])
+    argv += ['--cluster-distance', 'euclidean']
     monkeypatch.setenv('ENSPARA_TPU_COORDINATOR', 'localhost:1234')
     with pytest.raises(ImproperlyConfigured, match='step 11'):
         cluster.main(argv)

@@ -27,7 +27,7 @@ from enspara_tpu_torch.exception import ImproperlyConfigured
 from enspara_tpu_torch.ops import qcp_matrix
 from enspara_tpu_torch.util.backend import check_random_state, select_device
 
-from test_torch_port import assert_rmsd_close, basin_data
+from test_torch_port import assert_gram_close, assert_rmsd_close, basin_data
 
 
 @pytest.fixture(autouse=True)
@@ -65,7 +65,7 @@ def test_assign_device_matches_jax(k):
         jnp.asarray(Xc), jnp.asarray(Cc), k_real=k, interpret=True)
     xla_a, xla_d = jengine.assign_device(X, centers, 'rmsd')
     before = qcp_matrix.qcp_rmsd_matrix_kernel.n_launches
-    a, d = engine.assign_device(X, centers)
+    a, d = engine.assign_device(X, centers, 'rmsd')
     assert qcp_matrix.qcp_rmsd_matrix_kernel.n_launches == before
     assert a.dtype == np.int64 and d.dtype == np.float64
     assert a.shape == d.shape == (len(X),)
@@ -80,15 +80,24 @@ def test_assign_device_matches_jax(k):
 def test_assign_device_prepared_and_tensor_inputs():
     X = _data(3, n=300)
     centers = X[[0, 50, 100]]
-    a, d = engine.assign_device(X, centers)
+    a, d = engine.assign_device(X, centers, 'rmsd')
     prep = engine.prepare_rmsd_frames(X, tile=128)     # n_pad 384
-    a2, d2 = engine.assign_device(prep, torch.from_numpy(centers))
+    a2, d2 = engine.assign_device(prep, torch.from_numpy(centers), 'rmsd')
     np.testing.assert_array_equal(a2, a)
     np.testing.assert_array_equal(d2, d)
     with pytest.raises(ValueError, match='centers'):
-        engine.assign_device(X, centers[:, :5])
-    with pytest.raises(NotImplementedError, match='step 5b'):
+        engine.assign_device(X, centers[:, :5], 'rmsd')
+    # prepared RMSD frames take only 'rmsd'; 3-D input is not features
+    with pytest.raises(ValueError, match='prepared for'):
+        engine.assign_device(prep, centers, 'euclidean')
+    with pytest.raises(ValueError, match='feature vectors'):
         engine.assign_device(X, centers, 'euclidean')
+    # the euclidean assignment of flattened frames equals the JAX one
+    F, C = X.reshape(len(X), -1), centers.reshape(3, -1)
+    ja, jd = jengine.assign_device(F, C, 'euclidean')
+    pa, pd = engine.assign_device(F, C, 'euclidean')
+    np.testing.assert_array_equal(pa, ja)
+    assert_gram_close(pd, jd, F, C)
 
 
 def test_kcenters_init_centers_matches_jax():
@@ -179,8 +188,13 @@ def test_estimator_predict_and_params_match_jax():
 
 
 def test_unported_metrics_raise():
-    with pytest.raises(NotImplementedError, match='step 5b'):
-        util._get_distance_method('manhattan')
+    """The named metrics dispatch to libdist as in the JAX package;
+    an unknown name raises."""
+    for name in ('euclidean', 'manhattan', 'cityblock', 'hamming'):
+        fn = util._get_distance_method(name)
+        assert fn.__name__ == jutil._get_distance_method(name).__name__
+        assert util._metric_name(fn) == jutil._metric_name(
+            jutil._get_distance_method(name))
     with pytest.raises(ImproperlyConfigured):
         util._get_distance_method('nope')
     assert util._metric_name(util._rmsd_metric) == 'rmsd'

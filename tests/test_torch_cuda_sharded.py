@@ -179,8 +179,8 @@ def test_cuda_mesh_paths_match_one_device(cuda):
     X = basin_data(np.random.default_rng(5), 9_000, 16, n_basins=30)
     mesh = FrameMesh([cuda] * 4)
     centers = X[::90]
-    a_m, d_m = engine.assign_device(X, centers, mesh=mesh)
-    a_1, d_1 = engine.assign_device(X, centers, device=cuda)
+    a_m, d_m = engine.assign_device(X, centers, 'rmsd', mesh=mesh)
+    a_1, d_1 = engine.assign_device(X, centers, 'rmsd', device=cuda)
     np.testing.assert_array_equal(a_m, a_1)
     np.testing.assert_array_equal(d_m, d_1)
     a = a_m.reshape(9, -1)

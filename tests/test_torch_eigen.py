@@ -238,23 +238,41 @@ def test_without_pi_the_host_solver_answers():
         np.testing.assert_allclose(vals, jvals, atol=1e-12)
 
 
-def test_tf32_setting_is_restored():
-    """The solver's products run in full fp32 whatever the caller set,
-    and the caller's setting comes back afterwards."""
-    T, pi = _metastable(5000, seed=5)
-    saved = torch.backends.cuda.matmul.allow_tf32
-    seen = []
-    real_orth = eigen_device._orth
+@pytest.mark.parametrize('caller', ['eigen', 'qcp', 'distances'])
+def test_tf32_setting_is_restored(caller, monkeypatch):
+    """The filtered solver's, the QCP contractions' and the Gram
+    distances' products run in full fp32 whatever the caller set
+    (``util.device.full_fp32_matmul``), and the caller's setting comes
+    back afterwards."""
+    from enspara_tpu_torch.ops import distances, qcp
 
-    def spy(V, use_qr):
-        seen.append(torch.backends.cuda.matmul.allow_tf32)
-        return real_orth(V, use_qr)
+    seen = []
+
+    def spy(fn):
+        def wrapped(*args, **kwargs):
+            seen.append(torch.backends.cuda.matmul.allow_tf32)
+            return fn(*args, **kwargs)
+        return wrapped
+    saved = torch.backends.cuda.matmul.allow_tf32
     try:
         torch.backends.cuda.matmul.allow_tf32 = True
-        eigen_device._orth = spy
-        _solve(T, pi, 6, method='filtered')
+        rng = np.random.default_rng(0)
+        if caller == 'eigen':
+            T, pi = _metastable(5000, seed=5)
+            monkeypatch.setattr(eigen_device, '_orth',
+                                spy(eigen_device._orth))
+            _solve(T, pi, 6, method='filtered')
+        elif caller == 'qcp':
+            monkeypatch.setattr(torch, 'einsum', spy(torch.einsum))
+            X = rng.normal(size=(20, 5, 3)).astype(np.float32)
+            X -= X.mean(axis=1, keepdims=True)
+            g = (X * X).sum((1, 2))
+            qcp.qcp_rmsd_matrix(X, X[:3], g, g[:3])
+        else:
+            monkeypatch.setattr(torch, 'addmm', spy(torch.addmm))
+            X = rng.normal(size=(20, 4)).astype(np.float32)
+            distances.pairwise_euclidean(X, X[:3])
         assert seen and not any(seen)
         assert torch.backends.cuda.matmul.allow_tf32 is True
     finally:
-        eigen_device._orth = real_orth
         torch.backends.cuda.matmul.allow_tf32 = saved

@@ -235,9 +235,10 @@ def test_functional_kcenters_matches_jax():
 
 
 def test_unported_options_raise():
-    """The feature metrics are still to port (ROADMAP queue 1 step 5b);
-    ``init_centers`` is ported (tests/test_torch_assign.py)."""
+    """The feature metrics take (n, d) feature vectors: coordinates
+    raise (tests/test_torch_features.py holds the metrics against the JAX
+    package); ``init_centers`` is ported (tests/test_torch_assign.py)."""
     X = np.zeros((10, 3, 3), np.float32)
     for metric in ('euclidean', 'manhattan', 'hamming'):
-        with pytest.raises(NotImplementedError, match='ROADMAP.*5b'):
+        with pytest.raises(ValueError, match='feature vectors'):
             kcenters(X, metric, n_clusters=2)

@@ -70,6 +70,27 @@ def assert_rmsd_close(actual, desired, gsum_max, n_atoms):
         err.max(), bad.sum(), floor)
 
 
+def assert_gram_close(actual, desired, X, C):
+    """Euclidean distances of the Gram form agree: for frame x,
+    ``|a^2 - d^2| <= 1e-5 d^2 + 16 eps32 (|x|^2 + max |c|^2)``.
+
+    fp32 ``|x|^2 + |c|^2 - 2 x.c`` cancels, so another summation order
+    moves d^2 by a few ulp of ``|x|^2 + |c|^2`` whatever its size (a
+    center frame's own distance is about ``sqrt(eps |x|^2)``, not 0)."""
+    actual = np.asarray(actual, np.float64)
+    desired = np.asarray(desired, np.float64)
+    assert actual.shape == desired.shape
+    X = np.asarray(X, np.float64).reshape(len(X), -1)
+    C = np.asarray(C, np.float64).reshape(len(C), -1)
+    scale = (X * X).sum(1) + (C * C).sum(1).max()
+    if actual.ndim == 2:
+        scale = scale[:, None]
+    err = np.abs(actual ** 2 - desired ** 2)
+    bad = err > 1e-5 * desired ** 2 + 16 * np.finfo(np.float32).eps * scale
+    assert not bad.any(), 'd^2 differs by %g at %d entries' % (
+        err.max(), bad.sum())
+
+
 def fresh_arrays(n, n_pad):
     """A fresh run's (1, n_pad) dist (-inf past n) and assig."""
     dist = np.full((1, n_pad), np.inf, np.float32)
@@ -105,7 +126,9 @@ def test_main_path_imports_no_jax():
         '             "parallel.io", "ops.qcp_update", "msm.msm",\n'
         '             "msm.timescales", "msm.bootstrap", "msm.bace",\n'
         '             "tpt.core", "tpt.tpt", "tpt.path",\n'
-        '             "apps.implied_timescales"):\n'
+        '             "apps.implied_timescales", "ops.distances",\n'
+        '             "geometry.libdist", "util.checkpoint",\n'
+        '             "cluster.save_states", "apps.main"):\n'
         '    assert "enspara_tpu_torch." + name in sys.modules, name\n')
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, '-c', code], cwd=REPO, env=env,
@@ -277,9 +300,9 @@ def test_cuda_cluster_path_matches_cpu(cuda, monkeypatch):
     g = 2 * float(((X - X.mean(1, keepdims=True)) ** 2).sum((1, 2)).max())
     centers = X[::50]
     n0 = qcp_matrix.qcp_rmsd_matrix_kernel.n_launches
-    a_c, d_c = engine.assign_device(X, centers)
+    a_c, d_c = engine.assign_device(X, centers, 'rmsd')
     assert qcp_matrix.qcp_rmsd_matrix_kernel.n_launches == n0
-    a_g, d_g = engine.assign_device(X, centers, device=cuda)
+    a_g, d_g = engine.assign_device(X, centers, 'rmsd', device=cuda)
     assert qcp_matrix.qcp_rmsd_matrix_kernel.n_launches == n0 + 1
     np.testing.assert_array_equal(a_g, a_c)
     assert_rmsd_close(d_g, d_c, g, 16)

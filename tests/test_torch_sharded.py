@@ -234,8 +234,8 @@ def test_assign_device_on_mesh_matches_jax():
     centers_r = jengine._center_structures(pmesh.replicated(centers, jmesh))
     a_j, d_j = jengine._assign_rmsd_pallas_sharded(data_sh, centers_r, 4,
                                                    jmesh)
-    a_p, d_p = engine.assign_device(X, centers, mesh=_cpu_mesh())
-    a_1, d_1 = engine.assign_device(X, centers, device='cpu')
+    a_p, d_p = engine.assign_device(X, centers, 'rmsd', mesh=_cpu_mesh())
+    a_1, d_1 = engine.assign_device(X, centers, 'rmsd', device='cpu')
     gmax = _gsum_max(X)
     np.testing.assert_array_equal(a_p, np.asarray(a_j)[:160])
     assert_rmsd_close(d_p, np.asarray(d_j)[:160], gmax, 20)
@@ -314,7 +314,7 @@ def test_shard_count_mismatch_raises():
         with pytest.raises(ValueError, match='laid out for'):
             engine.kcenters_device_fused(x, n_clusters=4, mesh=mesh)
     with pytest.raises(ValueError, match='laid out for'):
-        engine.assign_device(prep4, X[:2], mesh=_cpu_mesh(2))
+        engine.assign_device(prep4, X[:2], 'rmsd', mesh=_cpu_mesh(2))
     with pytest.raises(NotImplementedError, match='step 11'):
         kmedoids(X, 'rmsd', n_clusters=4, mesh=_cpu_mesh(2))
     res = engine.kcenters_device_fused(prep4, n_clusters=4,
