@@ -83,7 +83,22 @@ each, in parallel) from the checkout and drives these paths:
      kcenters over a 4-shard mesh of the card against one device,
      manhattan and hamming (1M x 64 three-state labels) k-centers and
      assignment; covering radii and labels against float64, each
-     assignment's peak card memory below 16 GB.
+     assignment's peak card memory below 16 GB;
+12.  the CARDS chain, with none of the six kernels: (a) cards_matrices at
+     BASELINE config 3 (the generator of
+     benchmarks/reference_configs.py:176-195: 2 trajectories x 250,000
+     frames x 150 three-state features), its joint counts' marginals and
+     64 feature pairs against np.bincount, the disorder labels against
+     the host painter, the four matrices against the port's own CPU run,
+     bit for bit, and the joint counts on a 4-shard mesh of the card; (b)
+     all_rotamers of a 25-residue LYS peptide (NeRF coordinates of hidden
+     2- and 3-basin dihedral chains, 500,000 frames): dihedrals within
+     1e-5 rad of float64 numpy, states equal to the host _rotamers on
+     every column whose angles stay clear of the gates; (c) `enspara
+     cards` and `enspara entropy` through the dispatcher on 20 XTC files
+     x 10,000 of those frames, by stage, the pickle equal to cards() of
+     the same frames; (d) weighted_mi at 20,000 x 100 boolean features
+     within 1e-12 of a float64 host einsum.
 
 Every time printed was taken on the card's machine (device stages timed
 with CUDA events or to a synchronize, host stages on its host), warm
@@ -101,6 +116,7 @@ import contextlib
 import importlib
 import json
 import os
+import pickle
 import subprocess
 import tempfile
 import time
@@ -112,13 +128,20 @@ import scipy.sparse
 import scipy.sparse.linalg
 import torch
 
+import enspara_tpu_torch.geometry as geometry_pkg
+import enspara_tpu_torch.io as port_io
 from enspara_tpu_torch.apps import cluster as cluster_app
+from enspara_tpu_torch.apps import collect_cards as cards_app
 from enspara_tpu_torch.apps import implied_timescales as its_app
+from enspara_tpu_torch.apps import main as main_app
 from enspara_tpu_torch.apps import reassign as reassign_app
+from enspara_tpu_torch.cards import cards, cards_matrices, disorder
 from enspara_tpu_torch.cluster import engine, engine_kmedoids, kcenters
 from enspara_tpu_torch.cluster import util as cluster_util
 from enspara_tpu_torch.convert import result_to_numpy
 from enspara_tpu_torch.exception import ConvergenceWarning
+from enspara_tpu_torch.geometry import dihedrals, rotamer
+from enspara_tpu_torch.info_theory import libinfo, mutual_info
 from enspara_tpu_torch.io import Topology, Trajectory, write_pdb, write_xtc
 from enspara_tpu_torch.msm import (MSM, MSMs, assigns_to_counts,
                                    assigns_to_counts_device,
@@ -153,8 +176,10 @@ TIMED_ITERS = 64
 SOURCE = 'enspara_tpu_torch/csrc/kcenters_step.cu'
 REPLACES = 'enspara_tpu/ops/kcenters_skip_pallas.py:274'
 NOSKIP_REPLACES = 'enspara_tpu/ops/kcenters_chunk_pallas.py:191'
-# the module, which the package's hybrid() function shadows as an attribute
+# the modules, which the packages' hybrid() and cards() functions shadow as
+# attributes
 hybrid_mod = importlib.import_module('enspara_tpu_torch.cluster.hybrid')
+cards_mod = importlib.import_module('enspara_tpu_torch.cards.cards')
 QCP_SOURCE = 'enspara_tpu_torch/csrc/qcp_matrix.cu'
 QCP_REPLACES = 'enspara_tpu/ops/qcp_pallas.py:111'
 # phase 4 shapes (frames, centers, atoms): an assignment block, a PAM
@@ -218,6 +243,16 @@ FEAT_TRJ, FEAT_FRAMES, FEAT_DIM, FEAT_BLOBS = 100, 10_000, 64, 2000
 FEAT_K, FEAT_SUBSAMPLE, FEAT_RESUME_FROM = 1000, 10, 500
 FEAT_CHECK = (65_536, 128)
 FEAT_MEM_LIMIT = 16 * 2 ** 30
+# phase 12, the CARDS chain: BASELINE config 3 (trajectories x frames each
+# x three-state features, its seed) and the feature pairs held against
+# np.bincount; the LYS peptide's residues, frames and seed; the CLI's
+# files x frames each (the peptide's first frames); weighted_mi's frames x
+# boolean features
+CARDS_TRJ, CARDS_FRAMES, CARDS_FEATURES, CARDS_SEED = 2, 250_000, 150, 7
+CARDS_PAIRS = 64
+CARDS_RES, CARDS_PEP_FRAMES, CARDS_PEP_SEED = 25, 500_000, 8
+CARDS_CLI_FILES, CARDS_CLI_FRAMES = 20, 10_000
+CARDS_WMI = (20_000, 100)
 
 
 def check(ok, what):
@@ -2121,6 +2156,394 @@ def feature_path(device, card):
              t_mesh, mesh_verdict, '; '.join(lines)), flush=True)
 
 
+def config3_trajs():
+    """BASELINE config 3's rotamer trajectories: the generator of
+    benchmarks/reference_configs.py:176-195 (RandomState(7), 64 dwells a
+    feature of geometric length, mean 200 frames, the last state held to
+    the end), CARDS_TRJ x (CARDS_FRAMES, CARDS_FEATURES) int16."""
+    rng = np.random.RandomState(CARDS_SEED)
+    n, F = CARDS_FRAMES, CARDS_FEATURES
+    trajs = []
+    for _ in range(CARDS_TRJ):
+        flips = rng.geometric(1 / 200.0, size=(F, 64))
+        states = rng.randint(0, 3, size=(F, 64))
+        traj = np.empty((n, F), dtype=np.int16)
+        for f in range(F):
+            reps = np.repeat(states[f], np.minimum(flips[f], n))
+            traj[:, f] = reps[:n] if reps.size >= n else np.pad(
+                reps, (0, n - reps.size), mode='edge')
+        trajs.append(traj)
+    return trajs
+
+
+# a LYS residue's heavy atoms in order, and the NeRF placement of its side
+# chain: (atom, offsets in the residue of the reference atoms a, b, c,
+# bond in nm, angle b-c-atom in degrees, torsion: a chi of lys_torsions or
+# a constant in degrees)
+LYS_ATOMS = ('N', 'CA', 'C', 'O', 'CB', 'CG', 'CD', 'CE', 'NZ')
+LYS_SIDE = (('CB', (2, 0, 1), 0.1530, 110.5, -122.6),
+            ('CG', (0, 1, 4), 0.1520, 114.1, 'chi1'),
+            ('CD', (1, 4, 5), 0.1520, 111.3, 'chi2'),
+            ('CE', (4, 5, 6), 0.1520, 111.3, 'chi3'),
+            ('NZ', (5, 6, 7), 0.1489, 111.9, 'chi4'))
+# the hidden basins' centers in degrees: phi [0, 180) and [180, 360); psi's
+# shifted basins [0, 160) and [160, 360) hold 180 and 0; chi's three
+PEP_CENTERS = {'phi': (90.0, 270.0), 'psi': (180.0, 0.0),
+               'chi': (60.0, 180.0, 300.0)}
+
+
+def lys_topology(topology_cls, n_res):
+    """A one-chain poly-LYS topology of ``topology_cls`` (the port's or the
+    JAX package's Topology), 9 heavy atoms a residue."""
+    top = topology_cls()
+    chain = top.add_chain()
+    for i in range(n_res):
+        res = top.add_residue('LYS', chain, i + 1)
+        for name in LYS_ATOMS:
+            top.add_atom(name, name[0], res)
+    return top
+
+
+def lys_torsions(n_frames, n_res, seed, dwell=200, noise=10.0):
+    """Torsions in degrees of a poly-LYS peptide, float32 (n_frames,
+    6 * n_res): phi of every residue, psi of every residue, then chi1-4 of
+    each residue in turn. Each follows a hidden Markov chain over its
+    basins (2 for phi and psi, 3 for chi) that leaves its basin with
+    probability 1/dwell a frame, plus Gaussian noise of ``noise``
+    degrees, from ``np.random.default_rng(seed)``."""
+    rng = np.random.default_rng(seed)
+    kinds = ['phi'] * n_res + ['psi'] * n_res + ['chi'] * (4 * n_res)
+    n_basins = np.array([len(PEP_CENTERS[k]) for k in kinds])
+    centers = np.zeros((len(kinds), 3))
+    for j, k in enumerate(kinds):
+        centers[j, :n_basins[j]] = PEP_CENTERS[k]
+    step = rng.random((n_frames, len(kinds)), dtype=np.float32) < 1 / dwell
+    jump = np.where(n_basins == 2, 1, rng.integers(1, 3, size=step.shape))
+    hidden = (rng.integers(0, 2, size=len(kinds))
+              + np.cumsum(step * jump, axis=0)) % n_basins
+    ang = centers[np.arange(len(kinds)), hidden]
+    return (ang + noise * rng.standard_normal(ang.shape, dtype=np.float32)
+            ).astype(np.float32)
+
+
+def _place(a, b, c, bond, angle, torsion):
+    """NeRF: the atom bonded to ``c`` at ``bond`` nm, angle b-c-d
+    ``angle`` and torsion a-b-c-d ``torsion`` (radians, per frame)."""
+    bc = c - b
+    bc = bc / bc.norm(dim=-1, keepdim=True)
+    n = torch.linalg.cross(b - a, bc)
+    n = n / n.norm(dim=-1, keepdim=True)
+    m = torch.linalg.cross(n, bc)
+    sin_a = bond * np.sin(np.deg2rad(angle))
+    return (c - bond * np.cos(np.deg2rad(angle)) * bc
+            + (sin_a * torch.cos(torsion))[:, None] * m
+            + (sin_a * torch.sin(torsion))[:, None] * n)
+
+
+def lys_peptide(torsions, device):
+    """Coordinates (n_frames, 9 * n_res, 3) in nm, float32 numpy, centered
+    a frame, of the poly-LYS peptide with the torsions of
+    :func:`lys_torsions`: NeRF placement in float64 on ``device`` (omega
+    180 degrees)."""
+    tor = torch.as_tensor(torsions, device=device).double().deg2rad()
+    T, n_res = tor.shape[0], tor.shape[1] // 6
+    col = {'phi': lambda i: tor[:, i], 'psi': lambda i: tor[:, n_res + i]}
+    for k in range(4):
+        col['chi%d' % (k + 1)] = \
+            lambda i, k=k: tor[:, 2 * n_res + 4 * i + k]
+    xyz = torch.zeros((T, 9 * n_res, 3), dtype=torch.float64, device=device)
+    n_ca, ca_c, c_n = 0.1458, 0.1525, 0.1329
+    xyz[:, 1, 0] = n_ca
+    t = np.deg2rad(111.2)
+    xyz[:, 2, 0] = n_ca - ca_c * np.cos(t)
+    xyz[:, 2, 1] = ca_c * np.sin(t)
+
+    def const(degrees):
+        return torch.full((T,), np.deg2rad(degrees), dtype=torch.float64,
+                          device=device)
+    for i in range(n_res):
+        r = 9 * i
+        N, CA, C = xyz[:, r], xyz[:, r + 1], xyz[:, r + 2]
+        xyz[:, r + 3] = _place(N, CA, C, 0.1231, 120.5, col['psi'](i) + np.pi)
+        for name, (a, b, c), bond, angle, tors in LYS_SIDE:
+            tors = col[tors](i) if isinstance(tors, str) else const(tors)
+            xyz[:, r + LYS_ATOMS.index(name)] = _place(
+                xyz[:, r + a], xyz[:, r + b], xyz[:, r + c], bond, angle,
+                tors)
+        if i + 1 < n_res:
+            xyz[:, r + 9] = _place(N, CA, C, c_n, 116.2, col['psi'](i))
+            xyz[:, r + 10] = _place(CA, C, xyz[:, r + 9], n_ca, 121.7,
+                                    const(180.0))
+            xyz[:, r + 11] = _place(C, xyz[:, r + 9], xyz[:, r + 10], ca_c,
+                                    111.2, col['phi'](i + 1))
+    xyz -= xyz.mean(dim=1, keepdim=True)
+    return xyz.float().cpu().numpy()
+
+
+def _cross(u, v):
+    return np.stack([u[..., 1] * v[..., 2] - u[..., 2] * v[..., 1],
+                     u[..., 2] * v[..., 0] - u[..., 0] * v[..., 2],
+                     u[..., 0] * v[..., 1] - u[..., 1] * v[..., 0]], -1)
+
+
+def dihedrals64(xyz, quartets, chunk=1 << 14):
+    """Dihedral angles in radians by the arctan2 form, float64 numpy, a
+    chunk of frames a thread."""
+    out = np.empty((len(xyz), len(quartets)))
+
+    def one(lo):
+        x = xyz[lo:lo + chunk].astype(np.float64)
+        p0, p1, p2, p3 = (x[:, quartets[:, k]] for k in range(4))
+        b1, b2, b3 = p1 - p0, p2 - p1, p3 - p2
+        c1, c2 = _cross(b2, b3), _cross(b1, b2)
+        out[lo:lo + chunk] = np.arctan2(
+            (b1 * c1).sum(-1) * np.sqrt((b2 * b2).sum(-1)),
+            (c1 * c2).sum(-1))
+    with ThreadPoolExecutor(8) as ex:
+        list(ex.map(one, range(0, len(xyz), chunk)))
+    return out
+
+
+def states_vs_host(traj, states, device, buffer_width=15):
+    """``all_rotamers``' states against the host ``_rotamers`` of the same
+    float64 angles, column by column, on every column whose angles stay
+    more than 1e-3 degrees from its family's gates and boundaries (where
+    float32 and float64 compares agree). Returns ``(columns compared,
+    columns)``."""
+    compared, col = 0, 0
+    for kinds, hb, shift in (rotamer.PHI, rotamer.PSI, rotamer.CHI):
+        _, deg = rotamer._degrees(traj, kinds, device)
+        if shift:
+            deg = torch.remainder(deg - shift, 360.0)
+        deg = deg.cpu().numpy()
+        marks = sorted({g for s in range(len(hb) - 1)
+                        for g in rotamer.get_gates(s, hb, buffer_width)}
+                       | set(hb[1:-1]))
+        clear = np.full(deg.shape[1], np.inf)
+        for g in marks:
+            clear = np.minimum(clear, np.abs(deg - g).min(axis=0))
+        for j in range(deg.shape[1]):
+            if clear[j] > 1e-3:
+                host = rotamer._rotamers(deg[:, j], hb, buffer_width)
+                check(np.array_equal(states[:, col + j], host),
+                      'rotamer states of column %d differ from _rotamers'
+                      % (col + j))
+                compared += 1
+        col += deg.shape[1]
+    return compared, col
+
+
+def cards_library(device, card):
+    """Phase 12a: cards_matrices at BASELINE config 3 on the card, its
+    joint counts, disorder labels and matrices checked, the joint-count
+    product timed."""
+    t = time.perf_counter()
+    trajs = config3_trajs()
+    print('made BASELINE config 3: %d x %d frames x %d features in %.1f s'
+          % (CARDS_TRJ, CARDS_FRAMES, CARDS_FEATURES,
+             time.perf_counter() - t), flush=True)
+    n_states = np.full(CARDS_FEATURES, 3, dtype=np.int16)
+    _, t_cold = timed_s(lambda: cards_matrices(trajs, n_states))
+    mats, t_warm = timed_s(lambda: cards_matrices(trajs, n_states))
+    cpu, t_cpu = timed_s(lambda: cards_matrices(trajs, n_states,
+                                                device='cpu'))
+    check(all(np.array_equal(m, c) for m, c in zip(mats, cpu)),
+          'CARDS matrices on the card differ from the CPU run')
+    check(all(m.shape == (CARDS_FEATURES,) * 2 and np.isfinite(m).all()
+              for m in mats), 'CARDS matrices not finite (F, F)')
+
+    X = trajs[0]
+    X_dev = torch.from_numpy(X).to(device)
+    jc, t_jc = timed_s(lambda: libinfo.matrix_bincount2d(X_dev, X_dev, 3, 3))
+    hist = np.stack([np.bincount(X[:, f], minlength=3)
+                     for f in range(CARDS_FEATURES)])
+    check(np.array_equal(jc.sum(-1), np.broadcast_to(
+        hist[:, None], jc.shape[:3])) and np.array_equal(
+        jc.sum(-2), np.broadcast_to(hist[None], jc.shape[:3])),
+        'joint-count marginals differ from np.bincount')
+    rng = np.random.default_rng(0)
+    for fa, fb in rng.integers(0, CARDS_FEATURES, size=(CARDS_PAIRS, 2)):
+        check(np.array_equal(jc[fa, fb], libinfo.bincount2d(
+            X[:, fa], X[:, fb], 3, 3)),
+            'joint counts of features %d, %d differ from np.bincount'
+            % (fa, fb))
+    mesh = FrameMesh((device,) * N_SHARDS)
+    check(np.array_equal(libinfo.matrix_bincount2d(X_dev, X_dev, 3, 3,
+                                                   mesh=mesh), jc),
+          'joint counts on a %d-shard mesh differ' % N_SHARDS)
+    # the transitions found on the card, the labels painted there
+    labels, _ = cards_mod._disorder_labels(
+        [torch.from_numpy(x).to(device) for x in trajs], device)
+    host, _ = disorder.assign_order_disorder(trajs)
+    check(all(np.array_equal(a.cpu().numpy(), b)
+              for a, b in zip(labels, host)),
+          'disorder labels differ from the host painter')
+
+    # the product alone: one-hot and matmul of one trajectory
+    reps = 5
+    ms = reps_ms(lambda: libinfo._count(X_dev, X_dev, 3, 3, True), reps)
+    width = 3 * CARDS_FEATURES
+    flops = 2.0 * CARDS_FRAMES * width * width
+    b = bound(2 * X.size + 8 * width * width, flops)
+    print('[%s] cards_matrices at %d x %d x %d: cold %.4f s, warm %.4f s '
+          '(CPU %.4f s), the four matrices equal to the CPU run bit for bit; '
+          'matrix_bincount2d %.4f s; the joint-count product (one-hot + '
+          'fp32 matmul, TF32 %s) %.4f ms = %.4g TFLOP/s against its bound '
+          '%.4f ms (%s, fp32 %.0f TFLOP/s): %.1f%%; marginals and %d pairs '
+          'equal np.bincount, %d-shard mesh equal, disorder labels equal '
+          'the host painter'
+          % (card, CARDS_TRJ, CARDS_FRAMES, CARDS_FEATURES, t_cold, t_warm,
+             t_cpu, t_jc, torch.backends.cuda.matmul.allow_tf32, ms,
+             flops / ms / 1e9, b[0], b[1], FP32_RATE / 1e12,
+             100 * b[0] / ms, CARDS_PAIRS, N_SHARDS), flush=True)
+    return {'cards_matrices_s': t_warm, 'product_ms': ms}
+
+
+def cards_featurize(device, card):
+    """Phase 12b: all_rotamers of the LYS peptide on the card, checked
+    against float64 dihedrals and the host _rotamers. Returns the
+    peptide's topology and coordinates."""
+    t = time.perf_counter()
+    tors = lys_torsions(CARDS_PEP_FRAMES, CARDS_RES, CARDS_PEP_SEED)
+    xyz = lys_peptide(tors, device)
+    top = lys_topology(Topology, CARDS_RES)
+    traj = Trajectory(xyz, top)
+    print('made a %d-residue LYS peptide: %d frames x %d atoms in %.1f s'
+          % (CARDS_RES, CARDS_PEP_FRAMES, xyz.shape[1],
+             time.perf_counter() - t), flush=True)
+    geometry_pkg.all_rotamers(traj[:1000])                 # warm-up
+    (states, inds, ns), t_rot = timed_s(lambda: geometry_pkg.all_rotamers(
+        traj))
+    n_dih = 2 * (CARDS_RES - 1) + 4 * CARDS_RES
+    check(states.shape == (CARDS_PEP_FRAMES, n_dih) and
+          states.dtype == np.int16 and len(inds) == n_dih,
+          'all_rotamers gave %s states, %d dihedrals' % (states.shape,
+                                                         len(inds)))
+    rad, t_dih = timed_s(lambda: dihedrals.dihedrals_tensor(xyz, inds,
+                                                            device))
+    diff = rad.cpu().numpy() - dihedrals64(xyz, inds)
+    err = float(np.abs(np.remainder(diff + np.pi, 2 * np.pi) - np.pi).max())
+    check(err < 1e-5, 'dihedrals differ from float64 by %g rad' % err)
+    compared, n_cols = states_vs_host(traj, states, device)
+    check(compared > 0, 'no column clear of the gates')
+    moves = int((np.diff(states, axis=0) != 0).sum())
+    print('[%s] all_rotamers at %d frames x %d dihedrals: %.4f s (dihedrals '
+          'alone %.4f s), %d state changes; dihedrals within %.3g rad of '
+          'float64; states equal _rotamers on %d of %d columns (those clear '
+          'of the gates by 1e-3 degrees)'
+          % (card, CARDS_PEP_FRAMES, n_dih, t_rot, t_dih, moves, err,
+             compared, n_cols), flush=True)
+    return top, xyz
+
+
+def weighted_mi_check(device, card):
+    """Phase 12d: weighted_mi on the card against the float64 host einsum
+    of its joint distribution."""
+    n, d = CARDS_WMI
+    rng = np.random.default_rng(9)
+    base = rng.random((n, 10)) < 0.5
+    X = base[:, rng.integers(0, 10, d)] ^ (rng.random((n, d)) < 0.1)
+    w = rng.random(n)
+    mi, t_dev = timed_s(lambda: mutual_info.weighted_mi(X, w))
+    t = time.perf_counter()
+    wn = w / np.linalg.norm(w, ord=1)
+    onehot = np.stack([X == u for u in range(2)], axis=-1)
+    P = np.einsum('tiu,t,tjv->uvij', onehot, wn, onehot)
+    # int16 alphabet sizes, as weighted_mi's default (its capacity log is
+    # then float32, as in the JAX package)
+    ref = mutual_info.weighted_mi_from_joint(P, X, wn,
+                                             np.full(d, 2, dtype='int16'))
+    t_host = time.perf_counter() - t
+    err = float(np.abs(mi - ref).max())
+    check(err <= 1e-12, 'weighted_mi differs from the host einsum by %g'
+          % err)
+    print('[%s] weighted_mi at %d x %d boolean features: card %.4f s, host '
+          'einsum %.4f s, within %.3g' % (card, n, d, t_dev, t_host, err),
+          flush=True)
+
+
+def cards_cli(top, xyz, card):
+    """Phase 12c: `enspara cards` and `enspara entropy` through the
+    dispatcher on the peptide's first frames, by stage."""
+    n_files = CARDS_CLI_FILES
+    with tempfile.TemporaryDirectory() as d:
+        t = time.perf_counter()
+        pdb = os.path.join(d, 'lys.pdb')
+        write_pdb(pdb, Trajectory(xyz[:1], top))
+        files = [os.path.join(d, 'pep%02d.xtc' % i) for i in range(n_files)]
+        cluster_util.load_xtc_codec(files)   # before the writer threads
+
+        def write(i):
+            lo = i * CARDS_CLI_FRAMES
+            write_xtc(files[i], Trajectory(xyz[lo:lo + CARDS_CLI_FRAMES],
+                                           top))
+        with ThreadPoolExecutor(8) as ex:
+            list(ex.map(write, range(n_files)))
+        print('wrote %d XTC files x %d frames x %d atoms in %.1f s'
+              % (n_files, CARDS_CLI_FRAMES, xyz.shape[1],
+                 time.perf_counter() - t), flush=True)
+        pkl, csv = os.path.join(d, 'cards.pkl'), os.path.join(d, 'inds.csv')
+        ent = os.path.join(d, 'ent.csv')
+        stages = ((port_io, 'load'), (geometry_pkg, 'all_rotamers'),
+                  (cards_mod, '_disorder_labels'), (mutual_info, 'mi_matrix'),
+                  (cards_app, 'save_cards'))
+        with contextlib.ExitStack() as stack:
+            st = [stack.enter_context(Stage(m, n)) for m, n in stages]
+            _, t_cards = timed_s(lambda: main_app.main(
+                ['enspara', 'cards', '--trajectories', *files, '--topology',
+                 pdb, '--matrices', pkl, '--indices', csv]))
+        secs = [s.seconds for s in st]
+        with Stage(port_io, 'load') as ld, \
+                Stage(geometry_pkg, 'all_rotamers') as ft:
+            _, t_ent = timed_s(lambda: main_app.main(
+                ['enspara', 'entropy', '--trajectories', *files,
+                 '--topology', pdb, '--entropies', ent]))
+        with ThreadPoolExecutor(8) as ex:
+            loaded = list(ex.map(lambda f: port_io.load(f, top=top), files))
+        lib, t_lib = timed_s(lambda: cards(loaded))
+        with open(pkl, 'rb') as f:
+            saved = pickle.load(f)
+        inds = np.loadtxt(csv, delimiter=',')
+        table = np.loadtxt(ent, delimiter=',')
+    keys = ('Struc_struc_MI', 'Disorder_disorder_MI', 'Struc_disorder_MI',
+            'Disorder_struc_MI')
+    check(all(type(saved[k]) is np.ndarray and np.array_equal(saved[k], m)
+              for k, m in zip(keys, lib[:4])),
+          "the pickle's matrices differ from cards() of the same frames")
+    check(np.array_equal(inds, lib[4]), 'the indices CSV differs')
+    check(table.shape == (CARDS_RES, 2) and
+          np.array_equal(table[:, 0], np.arange(1, CARDS_RES + 1)) and
+          bool(((table[:, 1] >= 0) & (table[:, 1] <= 1)).all()),
+          'entropies %s outside [0, 1]' % (table[:, 1],))
+    print('[%s] enspara cards on %d x %d frames: %.4f s = load %.4f s, '
+          'featurize %.4f s, disorder %.4f s, the four MI matrices %.4f s, '
+          'write %.4f s, other %.4f s; the pickle (numpy, four keys) equal '
+          'to cards() of the same frames (%.4f s); enspara entropy %.4f s '
+          '(load %.4f s, featurize %.4f s), %d residues, entropies %.4f - '
+          '%.4f' % ((card, n_files, CARDS_CLI_FRAMES, t_cards) + tuple(secs)
+                    + (t_cards - sum(secs), t_lib, t_ent, ld.seconds,
+                       ft.seconds, len(table), table[:, 1].min(),
+                       table[:, 1].max())), flush=True)
+
+
+def cards_path(device, card):
+    """Phase 12: the CARDS chain on the card, with none of the six kernels
+    launched."""
+    reset_launches()
+    cards_library(device, card)
+    top, xyz = cards_featurize(device, card)
+    cards_cli(top, xyz[:CARDS_CLI_FILES * CARDS_CLI_FRAMES], card)
+    del xyz
+    weighted_mi_check(device, card)
+    launched = (kcenters_chunk.n_launches,
+                qcp_matrix.qcp_rmsd_matrix_kernel.n_launches,
+                ell_spmm_kernel.n_launches, kcenters_iteration.n_launches,
+                kcenters_iteration_skip.n_launches)
+    check(not any(launched), 'phase 12 launched a kernel: %s' % (launched,))
+    print('[%s] phase 12 (CARDS) passed; none of the six kernels launched'
+          % card, flush=True)
+
+
 def main():
     card = card_line()
     print('card:', card, flush=True)
@@ -2334,6 +2757,10 @@ def main():
 
     # -- 11. clustering feature vectors at full size ------------------------
     feature_path(device, card)
+    torch.cuda.empty_cache()
+
+    # -- 12. the CARDS chain ------------------------------------------------
+    cards_path(device, card)
     print('launches: north star kcenters_step %d; north star tri_skip=False '
           'kcenters_step_noskip %d; cluster -> reassign kcenters_step %d, '
           'qcp_matrix %d; scale-point eigensolve ell_spmm %d; implied '

@@ -3,10 +3,9 @@
 
     python -m enspara_tpu_torch.apps.main cluster --features f*.npy ...
 
-``cluster``, ``implied`` and ``reassign`` run the port's apps. The apps
-not ported yet raise ``ImproperlyConfigured`` naming the ROADMAP.md
-step that brings them: ``cards`` and ``entropy`` step 8, the two
-``smfret-*`` step 10.
+``cluster``, ``implied``, ``reassign``, ``cards`` and ``entropy`` run the
+port's apps. The two ``smfret-*`` apps are not ported yet: they raise
+``ImproperlyConfigured`` naming ROADMAP.md queue 1 step 10.
 """
 
 import argparse
@@ -19,8 +18,8 @@ _APP_MODULES = {
     'cluster': '.cluster',
     'implied': '.implied_timescales',
     'reassign': '.reassign',
-    'cards': ('collect_cards', '8'),
-    'entropy': ('shannon_entropy', '8'),
+    'cards': '.collect_cards',
+    'entropy': '.shannon_entropy',
     'smfret-dyes': ('smFRET_dye_MC', '10'),
     'smfret-clouds': ('smFRET_point_clouds', '10'),
 }

@@ -26,7 +26,8 @@ from enspara_tpu.exception import ImproperlyConfigured as JaxImproperly
 from enspara_tpu.util import checkpoint as jax_checkpoint
 
 from enspara_tpu_torch.apps import cluster, main as main_app
-from enspara_tpu_torch.apps import implied_timescales, reassign
+from enspara_tpu_torch.apps import (collect_cards, implied_timescales,
+                                    reassign, shannon_entropy)
 from enspara_tpu_torch.cluster import kcenters
 from enspara_tpu_torch.cluster.save_states import save_states
 from enspara_tpu_torch.exception import ImproperlyConfigured
@@ -245,15 +246,14 @@ def test_save_states_writes_the_jax_pdbs(tmp_path):
 def test_dispatcher_routes_and_names_the_unported_apps():
     for name, module in (('cluster', cluster), ('implied',
                                                 implied_timescales),
-                         ('reassign', reassign)):
+                         ('reassign', reassign), ('cards', collect_cards),
+                         ('entropy', shannon_entropy)):
         args = main_app.identify_app(['enspara', name, '--help'])
         assert args.main is module.main and args.appargs == ['--help']
-    for name, step in (('cards', 'step 8'), ('entropy', 'step 8'),
-                       ('smfret-dyes', 'step 10'),
-                       ('smfret-clouds', 'step 10')):
+    for name in ('smfret-dyes', 'smfret-clouds'):
         with pytest.raises(ImproperlyConfigured,
                            match='not ported to enspara_tpu_torch yet: '
-                                 'ROADMAP.md queue 1 ' + step):
+                                 'ROADMAP.md queue 1 step 10'):
             main_app.identify_app(['enspara', name])
     with pytest.raises(SystemExit):
         main_app.identify_app(['enspara', 'not-an-app'])

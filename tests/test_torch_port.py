@@ -128,7 +128,10 @@ def test_main_path_imports_no_jax():
         '             "tpt.core", "tpt.tpt", "tpt.path",\n'
         '             "apps.implied_timescales", "ops.distances",\n'
         '             "geometry.libdist", "util.checkpoint",\n'
-        '             "cluster.save_states", "apps.main"):\n'
+        '             "cluster.save_states", "apps.main",\n'
+        '             "info_theory.libinfo", "info_theory.mutual_info",\n'
+        '             "geometry.rotamer", "cards.cards",\n'
+        '             "apps.collect_cards", "apps.shannon_entropy"):\n'
         '    assert "enspara_tpu_torch." + name in sys.modules, name\n')
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, '-c', code], cwd=REPO, env=env,
