@@ -98,7 +98,20 @@ each, in parallel) from the checkout and drives these paths:
      cards` and `enspara entropy` through the dispatcher on 20 XTC files
      x 10,000 of those frames, by stage, the pickle equal to cards() of
      the same frames; (d) weighted_mi at 20,000 x 100 boolean features
-     within 1e-12 of a float64 host einsum.
+     within 1e-12 of a float64 host einsum;
+13.  structure analysis, with none of the six kernels: (a) shrake_rupley
+     over 2,000 centers of a 263-residue LYS globule at protein density
+     (2,367 atoms, 960 points, probe 0.28 nm, the neighbor list), cold
+     and warm, against the dense path and a float64 oracle on 3 frames
+     and a 4-shard mesh of the card, with its operation bound; (b)
+     exposons of those SASAs by stage, the MI within 1e-12 of a float64
+     host einsum, the labels equal to the CPU run; (c) rmsf_calc within
+     1e-6 of float64, the helix functions on a 20-residue ideal helix,
+     get_pockets on 8 frames with a planted cavity; (d) the smFRET
+     point-cloud route: SF488/SF594 distance distributions over every
+     center for 2 residue pairs, 1,000 photon bursts from a 2,000-state
+     MSM, the first bursts again host-only (the CPU's distributions,
+     equal counts; the FRET efficiencies equal bit for bit).
 
 Every time printed was taken on the card's machine (device stages timed
 with CUDA events or to a synchronize, host stages on its host), warm
@@ -138,10 +151,15 @@ from enspara_tpu_torch.apps import reassign as reassign_app
 from enspara_tpu_torch.cards import cards, cards_matrices, disorder
 from enspara_tpu_torch.cluster import engine, engine_kmedoids, kcenters
 from enspara_tpu_torch.cluster import util as cluster_util
+from enspara_tpu_torch import ra
 from enspara_tpu_torch.convert import result_to_numpy
 from enspara_tpu_torch.exception import ConvergenceWarning
-from enspara_tpu_torch.geometry import dihedrals, rotamer
-from enspara_tpu_torch.info_theory import libinfo, mutual_info
+from enspara_tpu_torch.geometry import (dihedrals, helix, pockets, rmsf,
+                                        rotamer)
+from enspara_tpu_torch.geometry import sasa as sasa_mod
+from enspara_tpu_torch.geometry import dyes_from_expt_dist as dyes
+from enspara_tpu_torch.geometry.sasa import shrake_rupley
+from enspara_tpu_torch.info_theory import exposons, libinfo, mutual_info
 from enspara_tpu_torch.io import Topology, Trajectory, write_pdb, write_xtc
 from enspara_tpu_torch.msm import (MSM, MSMs, assigns_to_counts,
                                    assigns_to_counts_device,
@@ -253,6 +271,22 @@ CARDS_PAIRS = 64
 CARDS_RES, CARDS_PEP_FRAMES, CARDS_PEP_SEED = 25, 500_000, 8
 CARDS_CLI_FILES, CARDS_CLI_FRAMES = 20, 10_000
 CARDS_WMI = (20_000, 100)
+# phase 13, the structure-analysis path: the globule's LYS residues (9
+# heavy atoms each: 2,367 atoms) at protein heavy-atom density (atoms per
+# nm^3), its cluster centers, shell points and the exposons' probe; the
+# planted groups (groups, residues each, outward swing in nm); the frames
+# of the exact SASA checks and the mesh's shards; the pockets' frames and
+# cavity radius; the helix's residues; the smFRET route's residue pairs,
+# bursts, the bursts run again host-only, photons a burst and MSM steps a
+# burst
+GLOB_RES, GLOB_DENSITY = 263, 56.0
+SASA_FRAMES, SASA_POINTS, SASA_PROBE = 2000, 960, 0.28
+PLANTED = (4, 8, 0.8)
+SASA_CHECK, SASA_SHARDS = 3, 4
+POCKET_FRAMES, POCKET_CAVITY = 8, 0.5
+HELIX_RES = 20
+FRET_PAIRS, FRET_BURSTS, FRET_HOST_BURSTS = 2, 1000, 2
+FRET_PHOTONS, FRET_STEPS = (50, 200), (1_000, 10_000)
 
 
 def check(ok, what):
@@ -2544,6 +2578,405 @@ def cards_path(device, card):
           % card, flush=True)
 
 
+def globule(n_res, seed=13, density=GLOB_DENSITY):
+    """Coordinates (9 * n_res, 3) in nm, float64, of a compact globule: the
+    9 * n_res points of a cubic lattice at ``density`` atoms per nm^3
+    nearest its center, jittered by 0.03 nm (seeded), ordered along a
+    Z-order curve so that each run of 9 (a LYS residue of
+    :func:`lys_topology`) lies together. A real protein's heavy-atom
+    density gives its SASA neighbor counts; a NeRF chain would give an
+    extended peptide with almost no burial."""
+    n = 9 * n_res
+    a = density ** (-1 / 3)
+    m = int(np.ceil((3 * n / (4 * np.pi * density)) ** (1 / 3) / a)) + 2
+    g = np.arange(-m, m + 1)
+    ijk = np.stack(np.meshgrid(g, g, g, indexing='ij'), -1).reshape(-1, 3)
+    ijk = ijk[np.argsort((ijk ** 2).sum(1), kind='stable')[:n]]
+    u = (ijk + m).astype(np.int64)
+    code = np.zeros(n, np.int64)
+    for bit in range(8):
+        for d in range(3):
+            code |= ((u[:, d] >> bit) & 1) << (3 * bit + d)
+    ijk = ijk[np.argsort(code, kind='stable')]
+    return ijk * a + np.random.default_rng(seed).normal(0, 0.03, (n, 3))
+
+
+def globule_frames(base, n_frames, seed, planted=PLANTED):
+    """Cluster centers of the globule ``base``: float32 (n_frames, atoms,
+    3) with 0.02 nm noise, plus ``planted`` = (groups, residues, swing):
+    each group, residues of the layer under the surface nearest one
+    tetrahedral direction, swings outward by ``swing`` nm along it in the
+    frames where its hidden label (a fair coin a frame) is 1. Returns the
+    frames, the labels (n_frames, groups) and the groups' residues."""
+    n_groups, per, swing = planted
+    rng = np.random.default_rng(seed)
+    cen = base.reshape(-1, 9, 3).mean(1)
+    rad = np.linalg.norm(cen, axis=1)
+    layer = np.flatnonzero((rad > 0.6 * rad.max()) & (rad < 0.85 * rad.max()))
+    dirs = np.array([(1, 1, 1), (1, -1, -1), (-1, 1, -1), (-1, -1, 1)],
+                    float)[:n_groups] / np.sqrt(3)
+    groups, taken = [], set()
+    for d in dirs:
+        order = layer[np.argsort(-(cen[layer] @ d) / rad[layer])]
+        groups.append(np.array([r for r in order if r not in taken][:per],
+                               dtype=int))
+        taken.update(groups[-1].tolist())
+    labels = rng.random((n_frames, n_groups)) < 0.5
+    xyz = np.repeat(base[None], n_frames, axis=0)
+    for k, g in enumerate(groups):
+        atoms = (9 * g[:, None] + np.arange(9)).ravel()
+        xyz[np.ix_(np.flatnonzero(labels[:, k]), atoms)] += swing * dirs[k]
+    xyz += rng.normal(0, 0.02, xyz.shape)
+    return xyz.astype(np.float32), labels, groups
+
+
+def sasa64(xyz, radii, n_points, device, block=64):
+    """Dense Shrake-Rupley in float64 torch ops on ``device``: the oracle
+    of phase 13a."""
+    pts = torch.as_tensor(sasa_mod.sphere_points(n_points),
+                          dtype=torch.float64, device=device)
+    X = torch.as_tensor(xyz, dtype=torch.float64, device=device)
+    r = torch.as_tensor(radii, dtype=torch.float64, device=device)
+    A = X.shape[1]
+    out = torch.empty(X.shape[:2], dtype=torch.float64, device=device)
+    for f in range(X.shape[0]):
+        for lo in range(0, A, block):
+            hi = min(lo + block, A)
+            shell = X[f, lo:hi, None, :] + r[lo:hi, None, None] * pts
+            d2 = ((shell[:, :, None, :] - X[f][None, None]) ** 2).sum(-1)
+            cover = d2 < r ** 2
+            cover[torch.arange(hi - lo), :, torch.arange(lo, hi)] = False
+            out[f, lo:hi] = ((~cover.any(-1)).double().mean(-1) * 4 * np.pi
+                             * r[lo:hi] ** 2)
+    return out.cpu().numpy()
+
+
+def candidate_pairs(xyz, rad, device, block=64):
+    """Candidate occluders of every (frame, atom), summed: the work the
+    data needs, (atom, point, candidate) tests over the shell points."""
+    X = torch.as_tensor(xyz, device=device)
+    r = torch.as_tensor(rad, device=device)
+    total = 0
+    for lo in range(0, X.shape[1], block):
+        for f in range(0, X.shape[0], 256):
+            _, rel = sasa_mod._block_candidates(X[f:f + 256], r, lo,
+                                                min(lo + block, X.shape[1]))
+            total += int(rel.sum())
+    return total
+
+
+def sasa_check(device, card):
+    """Phase 13a: shrake_rupley over the globule's centers at full size,
+    held against the dense path, a float64 oracle and a 4-shard mesh."""
+    top = lys_topology(Topology, GLOB_RES)
+    base = globule(GLOB_RES)
+    xyz, labels, groups = globule_frames(base, SASA_FRAMES, seed=14)
+    traj = Trajectory(xyz, top)
+    radii = np.array([a.radius for a in top.atoms], np.float32)
+    rad = radii + SASA_PROBE
+
+    def run(**kw):
+        return shrake_rupley(traj, probe_radius=SASA_PROBE,
+                             n_sphere_points=SASA_POINTS, **kw)
+    torch.cuda.reset_peak_memory_stats()
+    sasa, t_cold = timed_s(run)
+    peak = torch.cuda.max_memory_allocated()
+    warm, t_warm = timed_s(run)
+    check(np.array_equal(warm, sasa), 'two SASA runs differ')
+    check(sasa.shape == (SASA_FRAMES, 9 * GLOB_RES)
+          and np.isfinite(sasa).all() and (sasa >= 0).all(),
+          'SASA of shape %s, finite and >= 0: %s'
+          % (sasa.shape, np.isfinite(sasa).all()))
+    X = torch.as_tensor(xyz, device=device)
+    need = int(sasa_mod._max_neighbor_count(X, torch.as_tensor(rad, device=
+                                                                device), 64))
+    k = sasa_mod._pick_n_neighbors(need, xyz.shape[1])
+    check(k is not None, 'the neighbor-list path was not taken')
+    n_tests = SASA_POINTS * candidate_pairs(xyz, rad, device)
+    b = bound(4 * (xyz.size + 2 * xyz.shape[1] + sasa.size), 9 * n_tests)
+
+    some = (xyz[:SASA_CHECK], radii)
+    dense = shrake_rupley(some, probe_radius=SASA_PROBE,
+                          n_sphere_points=SASA_POINTS, n_neighbors=None,
+                          device=device)
+    check(np.array_equal(dense, sasa[:SASA_CHECK]),
+          'the neighbor-list path differs from the dense path')
+    oracle = sasa64(xyz[:SASA_CHECK],
+                    np.array([a.radius for a in top.atoms]) + SASA_PROBE,
+                    SASA_POINTS, device)
+    tol = 2 * 4 * np.pi * rad.astype(np.float64) ** 2 / SASA_POINTS
+    err = np.abs(sasa[:SASA_CHECK] - oracle)
+    total = abs(sasa[:SASA_CHECK].sum(dtype=np.float64) - oracle.sum()) \
+        / oracle.sum()
+    check((err <= tol).all(), 'an atom is %.3g shell-point areas from the '
+          'float64 oracle' % (err / tol * 2).max())
+    check(total <= 1e-4, 'total SASA %.3g from the float64 oracle' % total)
+    mesh = FrameMesh((device,) * SASA_SHARDS)
+    sharded, t_mesh = timed_s(lambda: run(mesh=mesh))
+    check(np.array_equal(sharded, sasa), 'the %d-shard mesh differs'
+          % SASA_SHARDS)
+    print('[%s] shrake_rupley at %d frames x %d atoms x %d points, probe %.2f '
+          'nm: cold %.4f s, warm %.4f s, %d-shard mesh %.4f s (equal); K = %d '
+          '(max candidates %d); %.4g tests the data needs (%.4g at K); bound '
+          '%.4f ms (%s: 9 fp32 operations a test at 67 TFLOP/s; bytes %.4f '
+          'ms), warm run at %.3f%% of it; peak %.2f GB; neighbor list equal '
+          'to the dense path on %d frames; within %.3g shell-point areas of '
+          'float64 (total %.3g)'
+          % (card, SASA_FRAMES, xyz.shape[1], SASA_POINTS, SASA_PROBE, t_cold,
+             t_warm, SASA_SHARDS, t_mesh, k, need, n_tests,
+             float(SASA_FRAMES) * xyz.shape[1] * SASA_POINTS * k, b[0], b[1],
+             1e3 * 4 * (xyz.size + 2 * xyz.shape[1] + sasa.size) / HBM_RATE,
+             100 * b[0] / (1e3 * t_warm), peak / 2 ** 30, SASA_CHECK,
+             (err / tol * 2).max(), total), flush=True)
+    return top, base, xyz, labels, groups, sasa
+
+
+def exposons_check(top, sasa, groups, device, card):
+    """Phase 13b: exposons from the SASAs, by stage, held against a
+    float64 host einsum (the MI) and the CPU run (the labels)."""
+    side, t_cond = timed_s(lambda: exposons.condense_sidechain_sasas(sasa,
+                                                                     top))
+    w = np.full(len(side), 1 / len(side))
+    with Stage(exposons, 'weighted_mi') as mi_st, \
+            Stage(exposons, 'affinity_propagation') as ap_st:
+        (mi, labels), t_all = timed_s(lambda: exposons.exposons_from_sasas(
+            side, 0.9, w, 0.02))
+    X = side > 0.02
+    onehot = np.stack([X == u for u in range(2)], axis=-1)
+    P = np.einsum('tiu,t,tjv->uvij', onehot, w, onehot)
+    ref = mutual_info.weighted_mi_from_joint(
+        P, X, w, np.full(X.shape[1], 2, dtype='int16'))
+    err = float(np.abs(mi - ref).max())
+    check(err <= 1e-12, 'exposon MI differs from the host einsum by %g' % err)
+    _, cpu_labels = exposons.exposons_from_sasas(side, 0.9, w, 0.02,
+                                                 device='cpu')
+    check(np.array_equal(labels, cpu_labels),
+          'exposon labels differ from the CPU run at residues %s'
+          % np.flatnonzero(labels != cpu_labels))
+    print('[%s] exposons of %d residues x %d centers: %.4f s = condensation '
+          '%.4f s, MI %.4f s (within %.3g of float64), affinity propagation '
+          '%.4f s, %d exposons; labels equal the CPU run; planted groups -> '
+          'labels: %s' % (card, side.shape[1], len(side), t_cond + t_all,
+                          t_cond, mi_st.seconds, err, ap_st.seconds,
+                          labels.max() + 1,
+                          '; '.join(','.join(map(str, labels[g]))
+                                    for g in groups)), flush=True)
+
+
+def kabsch64(xyz):
+    """Every frame of float64 ``xyz`` aligned onto frame 0 (Kabsch)."""
+    ref = xyz[0] - xyz[0].mean(0)
+    mob = xyz - xyz.mean(1, keepdims=True)
+    U, _, Vt = np.linalg.svd(np.einsum('fai,aj->fij', mob, ref))
+    d = np.sign(np.linalg.det(np.einsum('fji,fkj->fik', Vt, U)))
+    D = np.ones((len(xyz), 3))
+    D[:, 2] = d
+    R = np.einsum('fji,fj,fkj->fik', Vt, D, U)
+    return np.einsum('faj,fij->fai', mob, R) + xyz[0].mean(0)
+
+
+def helix_torsions(n_res):
+    """The torsions of :func:`lys_torsions` for an ideal alpha helix: phi
+    -57, psi -47, chi 180 degrees."""
+    tor = np.full((1, 6 * n_res), 180.0, np.float32)
+    tor[:, :n_res], tor[:, n_res:2 * n_res] = -57.0, -47.0
+    return tor
+
+
+def screw_axis(x, n_res):
+    """Unit axis of the screw that carries each residue's (N, CA, C) frame
+    onto the next one's (float64), pointing from the helix's end toward
+    its start."""
+    def frame(i):
+        n, ca, c = x[9 * i], x[9 * i + 1], x[9 * i + 2]
+        e1 = (c - ca) / np.linalg.norm(c - ca)
+        e2 = (n - ca) - e1 * ((n - ca) @ e1)
+        e2 /= np.linalg.norm(e2)
+        return np.stack([e1, e2, np.cross(e1, e2)], 1)
+    w, v = np.linalg.eig(frame(n_res // 2 + 1) @ frame(n_res // 2).T)
+    ax = np.real(v[:, np.argmin(np.abs(w - 1))])
+    ax /= np.linalg.norm(ax)
+    return -ax if ax @ (x[9 * (n_res - 1) + 1] - x[1]) > 0 else ax
+
+
+def geometry_check(top, base, xyz, device, card):
+    """Phase 13c: rmsf_calc over the centers, the helix functions on an
+    ideal helix, get_pockets on a globule with a planted cavity."""
+    pops = np.random.default_rng(15).dirichlet(np.ones(len(xyz)))
+    traj = Trajectory(xyz, top)
+    per_res, t_rmsf = timed_s(lambda: rmsf.rmsf_calc(traj,
+                                                     populations=pops))
+    per_atom = rmsf.rmsf_calc(traj, populations=pops, per_residue=False)
+    al = kabsch64(xyz.astype(np.float64))
+    ref = pops @ ((al - al[0]) ** 2).sum(-1)
+    ref_res = np.sqrt(ref.reshape(-1, 9).mean(1))
+    err = max(float(np.abs(per_atom - np.sqrt(ref)).max()),
+              float(np.abs(per_res - ref_res).max()))
+    check(per_res.shape == (GLOB_RES,) and err <= 1e-6,
+          'rmsf differs from float64 by %g' % err)
+
+    hx = Trajectory(lys_peptide(helix_torsions(HELIX_RES), device),
+                    lys_topology(Topology, HELIX_RES))
+    (axis, refs, cross, cen), t_hx = timed_s(
+        lambda: helix.calculate_summary_helix_vectors(
+            hx, [5, 6, 7], helix_start=1, helix_end=HELIX_RES))
+    bb = hx.xyz[0].astype(np.float64).reshape(HELIX_RES, 9, 3)[:, :3]
+    bb = bb.reshape(-1, 3)
+    win = np.stack([bb[i:i + 12].mean(0) for i in range(len(bb) - 13)])
+    telescoped = (win[0] - win[-1]) / np.linalg.norm(win[0] - win[-1])
+    ax = axis[0].astype(np.float64)
+
+    def angle(u, v):
+        return float(np.arctan2(np.linalg.norm(np.cross(u, v)), u @ v))
+    arith = angle(ax, telescoped)
+    off = angle(ax, screw_axis(hx.xyz[0].astype(np.float64), HELIX_RES))
+    ortho = float(max(np.abs(refs[:, 0] @ axis[0]).max(),
+                      np.abs(cross[:, 0] @ axis[0]).max(),
+                      np.abs((refs[:, 0] * cross[:, 0]).sum(-1)).max()))
+    turn, _ = helix.angles_from_plane_projection(refs[1:, 0], refs[0, 0],
+                                                 cross[0, 0])
+    check(arith <= 1e-5 and ortho <= 1e-5,
+          'helix axis %.3g rad from its float64 formula, frames off by %.3g'
+          % (arith, ortho))
+    check(off <= 0.02, 'helix axis %.3g rad from the screw axis' % off)
+
+    c = np.zeros(3)
+    keep = np.flatnonzero(np.linalg.norm(base - c, axis=1) > POCKET_CAVITY)
+    cav = Trajectory(
+        (base[None, keep] + np.random.default_rng(16).normal(
+            0, 0.02, (POCKET_FRAMES, len(keep), 3))).astype(np.float32),
+        top.subset(keep))
+    found, t_pk = timed_s(lambda: pockets.get_pockets(cav, n_procs=8))
+    check(len(found) == POCKET_FRAMES and None not in found,
+          'a frame without pockets')
+    dist = [float(np.linalg.norm(p.xyz[0][[a.index for a in p.top.atoms
+                                            if a.residue.index == 0]]
+                                 .mean(0) - c)) for p in found]
+    check(max(dist) <= 0.2, 'the largest pocket lies %.3g nm from the cavity'
+          % max(dist))
+    print('[%s] rmsf_calc over %d centers: %.4f s, within %.3g of float64; '
+          'helix frames of a %d-residue ideal helix %.4f s: axis %.3g rad '
+          'from its float64 formula, %.4g rad from the screw axis (the '
+          'windowed estimate), frames orthogonal to %.3g, residues 6-7 turn '
+          '%.2f and %.2f degrees from residue 5; get_pockets on %d frames of '
+          '%d atoms: %.4f s (%.4f s a frame), %d-%d cells in the largest '
+          'pocket, its centroid %.3g nm from the cavity'
+          % (card, len(xyz), t_rmsf, err, HELIX_RES, t_hx, arith, off, ortho,
+             turn[0], turn[1], POCKET_FRAMES, len(keep), t_pk,
+             t_pk / POCKET_FRAMES,
+             min(sum(a.residue.index == 0 for a in p.top.atoms)
+                 for p in found),
+             max(sum(a.residue.index == 0 for a in p.top.atoms)
+                 for p in found), max(dist)), flush=True)
+
+
+def label_sites(traj, n, exclude):
+    """``n`` pairs of residues (resSeq) for dye labels: the outermost
+    residues whose CA -> CB direction points most outward, but for the
+    residue indices ``exclude``."""
+    cb = dyes.calc_cb_coords(traj[0])
+    ca = traj.xyz[0][traj.top.select('name CA')]
+    out = ((cb - ca) / np.linalg.norm(cb - ca, axis=1)[:, None]
+           * ca / np.linalg.norm(ca, axis=1)[:, None]).sum(1)
+    score = out + np.linalg.norm(ca, axis=1)
+    score[list(exclude)] = -np.inf
+    return (np.argsort(-score)[:2 * n] + 1).reshape(2, n).T
+
+
+def smfret_check(top, xyz, groups, device, card):
+    """Phase 13d: the point-cloud route: dye distance distributions over
+    every center on the card, photon bursts sampled from a 2,000-state MSM
+    (host numpy streams), then the first bursts again host-only: the CPU's
+    distributions of the states they visit (counts equal to the card's),
+    the rest NaN, so that a read of any other state fails."""
+    traj = Trajectory(xyz, top)
+    d1, d2 = dyes.load_dye('SF488'), dyes.load_dye('SF594')
+    pairs = label_sites(traj, FRET_PAIRS, np.concatenate(groups))
+    dist, t_card = [], 0.0
+    for pair in pairs:
+        pe, t = timed_s(lambda: dyes.dye_distance_distribution(
+            traj, d1, d2, pair, n_procs=8))
+        dist.append(pe)
+        t_card += t
+    n = len(xyz)
+    C = sparse_metastable_counts(n, n_blocks=min(25, max(1, n // 8)),
+                                 seed=17)
+    rows = np.asarray(C.sum(1)).ravel()
+    T = scipy.sparse.diags(1 / rows) @ C
+    pops = rows / rows.sum()
+    rng = np.random.default_rng(18)
+    times = []
+    for _ in range(FRET_BURSTS):
+        k = int(rng.integers(*FRET_PHOTONS, endpoint=True))
+        # gaps in us; the lag time 1 ps is 1000 MSM steps a us
+        times.append(rng.exponential(rng.uniform(*FRET_STEPS) / k / 1000, k))
+    frames = dyes.convert_photon_times(times, 1.0, 1)
+
+    def sample(dist_distribution, bursts):
+        # one thread: each burst is a Python loop, and more threads only
+        # contend for the interpreter lock
+        return dyes.sample_FRET_histograms(
+            T, pops, dist_distribution, bursts, 5.4, n_procs=1,
+            n_photon_std=2, random_state=0)
+    (fe, trajs), t_fe = timed_s(lambda: sample(
+        dyes.make_distribution(*dist[0]), frames))
+    E = np.array(fe[:, 0], dtype=float)
+    check(E.shape == (FRET_BURSTS,) and ((E >= 0) & (E <= 1)).all(),
+          'FRET efficiencies outside [0, 1]')
+
+    H = FRET_HOST_BURSTS
+    seen = np.unique(np.concatenate([t[f] for t, f in zip(trajs[:H],
+                                                          frames[:H])]))
+    t = time.perf_counter()
+    host = [dyes.dye_distance_distribution(Trajectory(xyz[seen], top), d1,
+                                           d2, pair, n_procs=8, device='cpu')
+            for pair in pairs]
+    t_cpu = time.perf_counter() - t
+    for (p, e), (hp, he) in zip(dist, host):
+        check(all(np.array_equal(p[s], a) and np.array_equal(e[s], b)
+                  for s, a, b in zip(seen, hp, he)),
+              'the dye distributions differ from the CPU run')
+    rows = list(dyes.make_distribution(*dist[0]))
+    for r in range(n):
+        rows[r] = rows[r].copy()
+        rows[r][:, 1] = np.nan
+    for s, row in zip(seen, dyes.make_distribution(*host[0])):
+        rows[s] = row
+    (hfe, htrajs), t_host = timed_s(lambda: sample(ra.RaggedArray(rows),
+                                                   frames[:H]))
+    check(np.array_equal(np.asarray(hfe, float), np.asarray(fe[:H], float))
+          and all(np.array_equal(a, b) for a, b in zip(htrajs, trajs[:H])),
+          'the first %d bursts differ from their host-only run' % H)
+    print('[%s] dye_distance_distribution (SF488/SF594) over %d centers for '
+          'residue pairs %s: card %.4f s; sample_FRET_histograms, %d bursts '
+          'of %d-%d photons over %d-%d MSM steps (%d-state T): %.4f s, mean E '
+          '%.4f; host-only run of the first %d bursts: the CPU distributions '
+          'of the %d states they visit %.4f s (counts equal the card\'s), '
+          'sampling %.4f s, equal bit for bit'
+          % (card, n, pairs.tolist(), t_card, FRET_BURSTS, FRET_PHOTONS[0],
+             FRET_PHOTONS[1], min(f[-1] for f in frames),
+             max(f[-1] for f in frames), n, t_fe, E.mean(), H, len(seen),
+             t_cpu, t_host), flush=True)
+
+
+def structure_path(device, card):
+    """Phase 13: SASA, exposons, RMSF, helix, pockets and the smFRET
+    point-cloud route on the card, with none of the six kernels
+    launched."""
+    reset_launches()
+    top, base, xyz, labels, groups, sasa = sasa_check(device, card)
+    exposons_check(top, sasa, groups, device, card)
+    geometry_check(top, base, xyz, device, card)
+    smfret_check(top, xyz, groups, device, card)
+    launched = (kcenters_chunk.n_launches,
+                qcp_matrix.qcp_rmsd_matrix_kernel.n_launches,
+                ell_spmm_kernel.n_launches, kcenters_iteration.n_launches,
+                kcenters_iteration_skip.n_launches)
+    check(not any(launched), 'phase 13 launched a kernel: %s' % (launched,))
+    print('[%s] phase 13 (structure analysis) passed; none of the six '
+          'kernels launched' % card, flush=True)
+
+
 def main():
     card = card_line()
     print('card:', card, flush=True)
@@ -2761,6 +3194,10 @@ def main():
 
     # -- 12. the CARDS chain ------------------------------------------------
     cards_path(device, card)
+    torch.cuda.empty_cache()
+
+    # -- 13. SASA, exposons, RMSF, helix, pockets, the point-cloud route ---
+    structure_path(device, card)
     print('launches: north star kcenters_step %d; north star tri_skip=False '
           'kcenters_step_noskip %d; cluster -> reassign kcenters_step %d, '
           'qcp_matrix %d; scale-point eigensolve ell_spmm %d; implied '

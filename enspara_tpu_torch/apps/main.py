@@ -3,8 +3,9 @@
 
     python -m enspara_tpu_torch.apps.main cluster --features f*.npy ...
 
-``cluster``, ``implied``, ``reassign``, ``cards`` and ``entropy`` run the
-port's apps. The two ``smfret-*`` apps are not ported yet: they raise
+``cluster``, ``implied``, ``reassign``, ``cards``, ``entropy`` and
+``smfret-clouds`` (the point-cloud half of smFRET) run the port's apps.
+``smfret-dyes`` (the explicit-dye half) is not ported yet: it raises
 ``ImproperlyConfigured`` naming ROADMAP.md queue 1 step 10.
 """
 
@@ -21,7 +22,7 @@ _APP_MODULES = {
     'cards': '.collect_cards',
     'entropy': '.shannon_entropy',
     'smfret-dyes': ('smFRET_dye_MC', '10'),
-    'smfret-clouds': ('smFRET_point_clouds', '10'),
+    'smfret-clouds': '.smFRET_point_clouds',
 }
 
 

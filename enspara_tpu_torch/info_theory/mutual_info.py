@@ -124,19 +124,43 @@ def mi_matrix_serial(states_a_list, states_b_list, n_a_states,
     return mi
 
 
+def _exact_parts(w):
+    """float64 weights ``w`` (>= 0) as three parts that sum to ``w``
+    exactly: two on the grids ``2^(e-30)`` and ``2^(e-60)``
+    (``2^e >= sum(w)``), where every partial sum of fewer than 2^23 terms,
+    in any order, is exact, and a remainder below ``2^(e-61)``."""
+    e = int(np.ceil(np.log2(max(float(w.sum()), np.finfo(float).tiny))))
+    parts, r = [], w
+    for g in (e - 30, e - 60):
+        q = np.ldexp(np.rint(np.ldexp(r, -g)), g)
+        parts.append(q)
+        r = r - q
+    return parts + [r]
+
+
 def weighted_joint(features, weights, s_max, device=None):
     """``P[u, v, i, j] = sum_t w_t [x_ti == u] [x_tj == v]``, (s_max,
-    s_max, F, F) float64 numpy: a float64 one-hot product on ``device``
-    (default: the card), a chunk of frames at a time."""
+    s_max, F, F) float64 numpy: float64 one-hot products on ``device``
+    (default: the card), a chunk of frames at a time.
+
+    The weights are summed in the three parts of :func:`_exact_parts`, the
+    two on grids exactly, so that the result does not depend on the order
+    of the sums: the card's products give the CPU's bits (affinity
+    propagation over the MI turns last-bit differences of near ties into
+    other labels)."""
     dev = resolve_device(features, device)
     X = libinfo.as_label_tensor(features)
-    w = torch.as_tensor(np.asarray(weights, np.float64))
+    parts = [torch.as_tensor(p, device=dev)
+             for p in _exact_parts(np.asarray(weights, np.float64))]
     T, F = X.shape
     chunk = libinfo.chunk_frames(2 * F * s_max)
-    P = torch.zeros((F * s_max, F * s_max), dtype=torch.float64, device=dev)
+    P = torch.zeros((3, F * s_max, F * s_max), dtype=torch.float64,
+                    device=dev)
     for lo in range(0, T, chunk):
         O = libinfo.onehot(X[lo:lo + chunk].to(dev), s_max, torch.float64)
-        P += (O * w[lo:lo + chunk].to(dev)[:, None]).T @ O
+        for k, w in enumerate(parts):
+            P[k] += (O * w[lo:lo + chunk, None]).T @ O
+    P = (P[0] + P[1]) + P[2]
     return P.reshape(F, s_max, F, s_max).permute(1, 3, 0, 2).cpu().numpy()
 
 

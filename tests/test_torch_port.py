@@ -131,7 +131,11 @@ def test_main_path_imports_no_jax():
         '             "cluster.save_states", "apps.main",\n'
         '             "info_theory.libinfo", "info_theory.mutual_info",\n'
         '             "geometry.rotamer", "cards.cards",\n'
-        '             "apps.collect_cards", "apps.shannon_entropy"):\n'
+        '             "apps.collect_cards", "apps.shannon_entropy",\n'
+        '             "geometry.sasa", "geometry.rmsf", "geometry.helix",\n'
+        '             "geometry.pockets", "geometry.dyes_from_expt_dist",\n'
+        '             "info_theory.exposons", "info_theory._affinity",\n'
+        '             "util.array", "data", "apps.smFRET_point_clouds"):\n'
         '    assert "enspara_tpu_torch." + name in sys.modules, name\n')
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, '-c', code], cwd=REPO, env=env,
