@@ -5,9 +5,10 @@ Run from the root of a checkout, with one CUDA card visible:
 
     python3 chip_smoke.py
 
-It builds the four kernel sources (csrc/kcenters_step.cu,
-csrc/qcp_update.cu, csrc/qcp_matrix.cu and csrc/ell_spmm.cu, one nvcc
-each, in parallel) from the checkout and drives these paths:
+It builds the four kernel sources (csrc/kcenters_step.cu with its fp32
+and bf16 entry points, csrc/qcp_update.cu likewise, csrc/qcp_matrix.cu
+and csrc/ell_spmm.cu, one nvcc each, in parallel) from the checkout and
+drives these paths:
 
 1-3. the k-centers kernel against its plain PyTorch version on the
      card, and the north-star pipeline at full size through the port's
@@ -111,7 +112,23 @@ each, in parallel) from the checkout and drives these paths:
      point-cloud route: SF488/SF594 distance distributions over every
      center for 2 residue pairs, 1,000 photon bursts from a 2,000-state
      MSM, the first bursts again host-only (the CPU's distributions,
-     equal counts; the FRET efficiencies equal bit for bit).
+     equal counts; the FRET efficiencies equal bit for bit);
+14.  the bf16 frame stream, the locality sort and the streamed ingest:
+     (a) kernels 1, 2 (and 4 on the whole layout) in bf16 at phase 2's
+     1M x 64 layout and kernels 3 and 4 at a 250,112 x 64 bf16 shard,
+     each against its plain version on the same bf16 frames, timed; (b)
+     the north star in bf16 (prepare_rmsd_frames(precision='bf16') ->
+     kcenters_device_fused to 1000 centers -> lag-10 counts -> top-21
+     eigenpairs) beside phase 2's fp32 seconds, tri_skip=False bit for
+     bit, every distance within the rounding bound of RMSD's triangle
+     inequality of the fp32 RMSD to the same center, and the 4-shard mesh
+     held as phase 9 holds fp32; (c) phase 5's basin frames shuffled
+     (seed 7) clustered unsorted and with sort='locality', skipped tiles
+     of each, the sorted results in the caller's order; (d) a 1M x 64
+     host array ingested streamed and in one copy, in both precisions,
+     bit for bit the same; (e) the cluster CLI on 10 of phase 5's XTC
+     files with --precision bf16 and with --locality-sort, the outputs
+     read back and checked.
 
 Every time printed was taken on the card's machine (device stages timed
 with CUDA events or to a synchronize, host stages on its host), warm
@@ -224,6 +241,11 @@ N_SHARDS, SHARDED_LAGS = 4, (1, 2, 5, 10)
 UPDATE_SOURCE = 'enspara_tpu_torch/csrc/qcp_update.cu'
 UPDATE_REPLACES = 'enspara_tpu/ops/qcp_update_pallas.py:134'
 SKIP_REPLACES = 'enspara_tpu/ops/kcenters_skip_pallas.py:482'
+# the bf16 frame stream of kernels 1-4: where each TPU kernel upconverts
+BF16_REPLACES = {'1': 'enspara_tpu/ops/kcenters_skip_pallas.py:203',
+                 '2': 'enspara_tpu/ops/kcenters_chunk_pallas.py:126',
+                 '3': 'enspara_tpu/ops/qcp_update_pallas.py:79',
+                 '4': 'enspara_tpu/ops/kcenters_skip_pallas.py:438'}
 ITER_TIMED = 50
 # phase 9's profiled window: runs of this many centers and twice as many
 CHUNK_CENTERS = 64
@@ -287,6 +309,12 @@ POCKET_FRAMES, POCKET_CAVITY = 8, 0.5
 HELIX_RES = 20
 FRET_PAIRS, FRET_BURSTS, FRET_HOST_BURSTS = 2, 1000, 2
 FRET_PHOTONS, FRET_STEPS = (50, 200), (1_000, 10_000)
+# phase 14, the bf16 frame stream, the locality sort and the streamed
+# ingest: frames a block of the per-frame RMSD checks, the seed of the
+# shuffle of phase 5's frames, the XTC files of phase 5 the CLI clusters
+CHECK_BLOCK = 1 << 18
+SORT_SEED = 7
+BF16_CLI_FILES = 10
 
 
 def check(ok, what):
@@ -362,7 +390,7 @@ def pair_rmsd(prep, fa, fb):
 
     def structs(idx):
         cols = prep.frames_r[:, torch.as_tensor(idx, device=prep.g.device)]
-        return cols.view(3, a_pad, -1).permute(2, 1, 0)
+        return cols.float().view(3, a_pad, -1).permute(2, 1, 0)
     A, B = structs(fa), structs(fb)
     S = torch.einsum('fni,fnj->ijf', A, B)
     gsum = (A * A).sum((1, 2)) + (B * B).sum((1, 2))
@@ -591,27 +619,34 @@ def qcp_self_pairs(device, F, C, A, seed):
                float((k - p).abs().max())))
 
 
-def write_trajectories(d):
-    """The phase-5 data set under ``d``: a PDB of 64 CA atoms and
-    N_TRJ XTC trajectories of TRJ_FRAMES basin frames each (seed 1,
-    2,000 basins, noise 0.02 nm). Returns ``(pdb, xtc paths, an upper
-    bound on the frame pairs' G sum)``."""
-    X = basin_data(np.random.default_rng(1), N_TRJ * TRJ_FRAMES, N_ATOMS,
-                   n_basins=2000)
+def phase5_data():
+    """Phase 5's frames: N_TRJ * TRJ_FRAMES basin frames of N_ATOMS
+    atoms (seed 1, 2,000 basins, noise 0.02 nm), trajectory by
+    trajectory."""
+    return basin_data(np.random.default_rng(1), N_TRJ * TRJ_FRAMES,
+                      N_ATOMS, n_basins=2000)
+
+
+def write_trajectories(d, n_trj=N_TRJ):
+    """The phase-5 data set under ``d``: a PDB of 64 CA atoms and the
+    first ``n_trj`` of its N_TRJ XTC trajectories of TRJ_FRAMES basin
+    frames each. Returns ``(pdb, xtc paths, an upper bound on the frame
+    pairs' G sum)``."""
+    X = phase5_data()[:n_trj * TRJ_FRAMES]
     top = Topology()
     chain = top.add_chain()
     for i in range(N_ATOMS):
         top.add_atom('CA', 'C', top.add_residue('ALA', chain, i + 1))
     pdb = os.path.join(d, 'ca.pdb')
     write_pdb(pdb, Trajectory(X[:1], top))
-    paths = [os.path.join(d, 'trj%03d.xtc' % t) for t in range(N_TRJ)]
+    paths = [os.path.join(d, 'trj%03d.xtc' % t) for t in range(n_trj)]
     cluster_util.load_xtc_codec(paths)   # before the writer threads
 
     def one(t):
         write_xtc(paths[t], Trajectory(
             X[t * TRJ_FRAMES:(t + 1) * TRJ_FRAMES], top))
     with ThreadPoolExecutor(8) as ex:
-        list(ex.map(one, range(N_TRJ)))
+        list(ex.map(one, range(n_trj)))
     Xc = X - X.mean(axis=1, keepdims=True)
     # xtc stores 1e-3 nm: 1% covers its change of G
     return pdb, paths, 2.02 * float(np.einsum('nai,nai->n', Xc, Xc).max())
@@ -795,11 +830,10 @@ def reps_ms(fn, reps):
 
 
 def reset_launches():
-    kcenters_chunk.n_launches = 0
+    for fn in (kcenters_chunk, kcenters_iteration, kcenters_iteration_skip):
+        fn.n_launches = fn.n_bf16_launches = 0
     qcp_matrix.qcp_rmsd_matrix_kernel.n_launches = 0
     ell_spmm_kernel.n_launches = 0
-    kcenters_iteration.n_launches = 0
-    kcenters_iteration_skip.n_launches = 0
 
 
 def scale_point():
@@ -1145,17 +1179,13 @@ def iteration_case(sh, state, col, gc, cid, md, bar):
             'same': same, 'err4': errs[0], 'err3': errs[1]}
 
 
-def iteration_kernels(device, X, card):
-    """Phase 8: kernels 3 and 4 against their plain versions at one
-    250,112 x 64 shard of phase 9's layout (from the state 8 plain
-    iterations leave, against this shard's farthest frame) and at phase
-    1's basin data cut into 4 shards (from the state 128 chunk
-    iterations leave, against the next center), each with the finite md
-    that chose the center and with md = inf; then the first timed in
-    turns. Returns the kernels' numbers."""
-    mesh = FrameMesh((device,) * N_SHARDS)
-    prep = engine.prepare_rmsd_frames(X, mesh=mesh)
-    sh, n_local, tile = prep.shards[0], prep.n_local, prep.tile
+def shard_kernels(sh, device, card, what=''):
+    """Kernels 3 and 4 against their plain versions at one shard ``sh``
+    (from the state 8 plain iterations leave, against this shard's
+    farthest frame), with the finite md that chose the center and with
+    md = inf; then timed in turns at md = inf. ``what`` names the frame
+    type in the printed lines. Returns the kernels' numbers."""
+    n_local, tile = sh.frames_r.shape[1], sh.tile
     rows = sh.frames_r.shape[0]
     bar = bar_from(2 * float(sh.g.max()), N_ATOMS)
     dist = torch.full((1, n_local), float('inf'), device=device)
@@ -1165,7 +1195,7 @@ def iteration_kernels(device, X, card):
 
     def center(k):
         gi = int(torch.argmax(dist[0]))
-        return (sh.frames_r[:, gi:gi + 1].contiguous(),
+        return (sh.frames_r[:, gi:gi + 1].float().contiguous(),
                 sh.g[:, gi:gi + 1].contiguous(), one(k, torch.int32, device),
                 one(float(dist[0, gi]), torch.float32, device))
     for k in range(8):
@@ -1181,11 +1211,11 @@ def iteration_kernels(device, X, card):
     check(kcenters_iteration_skip.n_launches == n4 + 2 and
           kcenters_iteration.n_launches == n3 + 2,
           'phase 8 launch counts did not grow by the launches made')
-    print('%d x %d shard, center %d at md %.6g: kernels vs plain within the '
-          'msd bar, near-tie flips %d / %d (md finite / inf), tiles skipped '
-          '%d / %d of %d, kernel 3 == kernel 4 bit for bit: %s / %s; max '
-          '|kernel - plain| kernel 4 %.3g, kernel 3 %.3g'
-          % (n_local, N_ATOMS, int(torch.argmax(dist[0])), float(md),
+    print('%s%d x %d shard, center %d at md %.6g: kernels vs plain within '
+          'the msd bar, near-tie flips %d / %d (md finite / inf), tiles '
+          'skipped %d / %d of %d, kernel 3 == kernel 4 bit for bit: %s / %s;'
+          ' max |kernel - plain| kernel 4 %.3g, kernel 3 %.3g'
+          % (what, n_local, N_ATOMS, int(torch.argmax(dist[0])), float(md),
              fin['flips'], inf['flips'], fin['skipped'], inf['skipped'],
              fin['tiles'], fin['same'], inf['same'], inf['err4'],
              inf['err3']), flush=True)
@@ -1217,24 +1247,40 @@ def iteration_kernels(device, X, card):
     ms_fin = queued_ms(lambda: kcenters_iteration_skip(
         sh.frames_r, sh.g, *work, col, gc, cid, md, N_ATOMS, tile=tile),
         ITER_TIMED)
-    # per call: the frames, G, and dist and assig read and written; 9
-    # fp32 FMAs per frame and atom row triple
-    it_bound = bound(4 * (rows * n_local + 5 * n_local),
-                     2 * 3 * rows * n_local)
+    # per call: the frames (2 or 4 bytes a coordinate), G, and dist and
+    # assig read and written; 9 fp32 FMAs per frame and atom row triple
+    it_bound = bound(sh.frames_r.element_size() * rows * n_local
+                     + 4 * 5 * n_local, 2 * 3 * rows * n_local)
     nums = {}
     for k, name in (('4', 'kernel 4'), ('3', 'kernel 3')):
         t = times[k]
         nums[k] = {'max_abs_err': inf['err' + k], 'ms': min(t[1:3]),
                    'plain_ms': min(t[0], t[3]), 'bound_ms': it_bound[0],
                    'bound_by': it_bound[1], 'library_ms': None}
-        print('[%s] %s per call at %d x %d, md = inf: kernel %.4f ms, plain '
-              '%.4f ms, bound %.4f ms (%s) (turns plain, kernel, kernel, '
-              'plain: %s)' % (card, name, n_local, N_ATOMS, nums[k]['ms'],
-                              nums[k]['plain_ms'], it_bound[0], it_bound[1],
-                              ', '.join('%.4f' % x for x in t)), flush=True)
-    print('[%s] kernel 4 per call at the finite md, %d calls from the same '
-          'state: %.4f ms' % (card, ITER_TIMED, ms_fin), flush=True)
-    del prep, sh, state, work, dist, assig, tmax
+        print('[%s] %s%s per call at %d x %d, md = inf: kernel %.4f ms, '
+              'plain %.4f ms, bound %.4f ms (%s) (turns plain, kernel, '
+              'kernel, plain: %s)' % (card, what, name, n_local, N_ATOMS,
+                                      nums[k]['ms'], nums[k]['plain_ms'],
+                                      it_bound[0], it_bound[1],
+                                      ', '.join('%.4f' % x for x in t)),
+              flush=True)
+    print('[%s] %skernel 4 per call at the finite md, %d calls from the '
+          'same state: %.4f ms' % (card, what, ITER_TIMED, ms_fin),
+          flush=True)
+    return nums
+
+
+def iteration_kernels(device, X, card):
+    """Phase 8: kernels 3 and 4 against their plain versions at one
+    250,112 x 64 shard of phase 9's layout (:func:`shard_kernels`) and at
+    phase 1's basin data cut into 4 shards (from the state 128 chunk
+    iterations leave, against the next center), each with the finite md
+    that chose the center and with md = inf. Returns the kernels'
+    numbers."""
+    mesh = FrameMesh((device,) * N_SHARDS)
+    prep = engine.prepare_rmsd_frames(X, mesh=mesh)
+    nums = shard_kernels(prep.shards[0], device, card)
+    del prep
 
     # phase 1's basin data in 4 shards, against the 129th center
     Xb = phase1_data()
@@ -2977,6 +3023,493 @@ def structure_path(device, card):
           'kernels launched' % card, flush=True)
 
 
+
+def frame_center_rmsd(prep, ctr):
+    """The fp32 QCP RMSD of each real frame i of ``prep`` to frame
+    ``ctr[i]`` of the same layout, computed in blocks on its device by
+    the plain QCP functions (float64 host array)."""
+    a_pad = prep.frames_r.shape[0] // 3
+    ctr = torch.as_tensor(np.asarray(ctr), dtype=torch.long,
+                          device=prep.g.device)
+    out = []
+    for lo in range(0, prep.n, CHECK_BLOCK):
+        hi = min(lo + CHECK_BLOCK, prep.n)
+        c = ctr[lo:hi]
+        f = prep.frames_r[:, lo:hi].float().view(3, a_pad, -1)
+        fc = prep.frames_r[:, c].float().view(3, a_pad, -1)
+        S = tuple((f[i] * fc[j]).sum(0) for i in range(3) for j in range(3))
+        out.append(rmsd_from_S_components_unrolled(
+            S, prep.g[0, lo:hi] + prep.g[0, c], float(prep.n_atoms))
+            .double().cpu())
+    return torch.cat(out).numpy()
+
+
+def rounding_rms(p16, p32):
+    """rms over the atoms of each frame's bf16 rounding, from its bf16
+    and fp32 layouts (float64 host array)."""
+    out = []
+    for lo in range(0, p32.n, CHECK_BLOCK):
+        hi = min(lo + CHECK_BLOCK, p32.n)
+        d = (p16.frames_r[:, lo:hi].float() - p32.frames_r[:, lo:hi]).double()
+        out.append((d.square().sum(0) / p32.n_atoms).sqrt().cpu())
+    return torch.cat(out).numpy()
+
+
+def rounding_check(res16, p16, p32, what):
+    """Every bf16 distance against the fp32 QCP RMSD of the same frame to
+    the same center frame, both unrounded: by RMSD's triangle inequality
+    |d_bf16 - d_fp32| <= rms(x_bf16 - x) + rms(c_bf16 - c), plus the fp32
+    msd bar of each side. Returns a one-line verdict."""
+    ctr_of = np.asarray(res16.center_indices)[res16.assignments]
+    d32 = frame_center_rmsd(p32, ctr_of)
+    e = rounding_rms(p16, p32)
+    bar = msd_bar(p32)
+    gap = np.abs(res16.distances - d32)
+    allowed = e + e[ctr_of] + 2 * np.sqrt(bar(d32))
+    check(bool((gap <= allowed).all()), '%s: |d_bf16 - d_fp32| up to %g, '
+          'above the rounding bound at %d frames'
+          % (what, gap.max(), int((gap > allowed).sum())))
+    check(gap.max() > 0, '%s: no bf16 rounding in the distances' % what)
+    return ('%s: |d_bf16 - d_fp32| <= rms(x_bf16 - x) + rms(c_bf16 - c) + '
+            'the msd bar at all %d frames (max gap %.4g, max rounding rms '
+            '%.4g, max gap / allowed %.3f)'
+            % (what, len(gap), gap.max(), e.max(), (gap / allowed).max()))
+
+
+def chunk_kernels(prep, card):
+    """Phases 3 and 14a at the main path's layout: kernels 1 and 2 (the
+    chunk with and without skipping) against the plain chunk on one
+    iteration, then timed in turns over TIMED_ITERS iterations, held
+    against the plain run and each other. Returns their numbers."""
+    what = 'bf16 ' if prep.frames_r.dtype == torch.bfloat16 else ''
+    start = fresh_state(prep)
+    bar = msd_bar(prep)
+
+    def noskip(prep, state, n_iters):
+        return kcenters_chunk(prep, state, n_iters, skip=False)
+    fns = {'plain': kcenters_chunk_plain, 'kernel': kcenters_chunk,
+           'noskip': noskip}
+    first = {name: run_chunk(fn, prep, clone(start), 1)
+             for name, fn in fns.items()}
+    fin = np.isfinite(first['plain'][0])
+    err = {}
+    for name in ('kernel', 'noskip'):
+        err[name] = float(np.abs(first[name][0][fin]
+                                 - first['plain'][0][fin]).max())
+        check(rmsd_close(first[name][0], first['plain'][0], bar),
+              '%sone iteration at full size (%s): distances outside the '
+              'msd bar' % (what, name))
+    times = {name: [] for name in fns}
+    outs = {}
+    turns = ('plain', 'kernel', 'noskip', 'noskip', 'kernel', 'plain')
+    for name in turns:
+        ms, outs[name] = timed_chunk(fns[name], prep, start, TIMED_ITERS)
+        times[name].append(ms)
+    print(compare_chunks(prep, start, outs['kernel'], outs['plain'],
+                         TIMED_ITERS, '%s%d x %d x %d kernel vs plain'
+                         % (what, N_FRAMES, N_ATOMS, TIMED_ITERS)))
+    check(all(np.array_equal(x, y)
+              for x, y in zip(outs['noskip'], outs['kernel'])),
+          '%sskip=False differs from skip=True at full size' % what)
+    rows, n_pad = prep.frames_r.shape
+    skc = outs['kernel'][6]
+    visited = 1.0 - skc[skc > 0].sum() / (TIMED_ITERS * (n_pad // prep.tile))
+    # per iteration: the frames (2 or 4 bytes a coordinate) of the tiles
+    # visited, G, dist and assig read and written; 9 * A_pad fp32 FMAs
+    # per frame. Kernel 2 visits every tile.
+    size = prep.frames_r.element_size()
+    b1 = bound(size * rows * n_pad * visited + 4 * 5 * n_pad,
+               2 * 3 * rows * n_pad)
+    b2 = bound(size * rows * n_pad + 4 * 5 * n_pad, 2 * 3 * rows * n_pad)
+    plain_ms = min(times['plain'])
+    nums = {'1': {'max_abs_err': err['kernel'], 'ms': min(times['kernel']),
+                  'plain_ms': plain_ms, 'bound_ms': b1[0],
+                  'bound_by': b1[1], 'library_ms': None},
+            '2': {'max_abs_err': err['noskip'], 'ms': min(times['noskip']),
+                  'plain_ms': plain_ms, 'bound_ms': b2[0],
+                  'bound_by': b2[1], 'library_ms': None}}
+    print('[%s] %sper iteration at %d x %d: kernel 1 %.4f ms (bound %.4f '
+          'ms, %s, %.1f%% of it), kernel 2 (skip=False) %.4f ms (bound '
+          '%.4f ms), plain %.4f ms (turns %s: %s); one-iteration max '
+          '|kernel - plain| %.3g, skip=False %.3g; skip=False bit for bit '
+          'the same' % (card, what, N_FRAMES, N_ATOMS, nums['1']['ms'],
+                        b1[0], b1[1], 100 * b1[0] / nums['1']['ms'],
+                        nums['2']['ms'], b2[0], plain_ms, ', '.join(turns),
+                        ', '.join('%.4f' % times[n][turns[:i].count(n)]
+                                  for i, n in enumerate(turns)),
+                        err['kernel'], err['noskip']), flush=True)
+    return nums
+
+
+def whole_layout_iterations(prep16, device):
+    """Phase 14a: kernels 4 and 3 in bf16 on the whole 1M layout as one
+    shard, from 8 chunk iterations, against their plain versions."""
+    bar = msd_bar(prep16)
+    st = fresh_state(prep16)
+    kcenters_chunk(prep16, st, 8)
+    gidx, md, i = st.scalars()
+    dev = device
+    col = prep16.frames_r[:, gidx:gidx + 1].float().contiguous()
+    gc = prep16.g[:, gidx:gidx + 1].contiguous()
+    cases = [iteration_case(prep16, (st.dist, st.assig, st.tmax), col, gc,
+                            one(i, torch.int32, dev),
+                            one(m, torch.float32, dev), bar)
+             for m in (md, float('inf'))]
+    print('bf16 %d x %d as one shard, center %d at md %.6g: kernels 4 and 3 '
+          'vs plain within the msd bar, tiles skipped %d / %d of %d (md '
+          'finite / inf), near-tie flips %d / %d'
+          % (N_FRAMES, N_ATOMS, gidx, md, cases[0]['skipped'],
+             cases[1]['skipped'], cases[0]['tiles'], cases[0]['flips'],
+             cases[1]['flips']), flush=True)
+
+
+def first_divergence(res, ref, bar, rerun):
+    """Phase 9's comparison of two coverings: the same centers with
+    distances on the msd bar, or a first differing pick that is a near
+    tie in the run before it (``rerun(i)`` clusters to i centers), and
+    the covering radii equal to 1e-5. Returns a verdict."""
+    ctr, ref_ctr = np.asarray(res.center_indices), ref.center_indices
+    diff = np.flatnonzero(ctr != ref_ctr)
+    if len(diff) == 0:
+        check(rmsd_close(res.distances, ref.distances, bar),
+              'distances outside the msd bar of one device')
+        same = all(np.array_equal(x, y) for x, y in zip(res, ref))
+        verdict = ('the same centers, distances within the msd bar, %d '
+                   'near-tie assignment flips, bit for bit: %s'
+                   % (int((res.assignments != ref.assignments).sum()), same))
+    else:
+        i = int(diff[0])
+        ca, cb = int(ctr[i]), int(ref_ctr[i])
+        before = rerun(i)
+        da, db = before.distances[ca], before.distances[cb]
+        check(abs(da * da - db * db) <= bar(max(da, db)),
+              'pick %d differs (%d vs %d) without a near tie: %r vs %r'
+              % (i, ca, cb, da, db))
+        verdict = ('first divergence at pick %d (%d vs %d, %.9g vs %.9g, a '
+                   'near tie)' % (i, ca, cb, da, db))
+    rs, r1 = float(res.distances.max()), float(ref.distances.max())
+    check(abs(rs - r1) <= 1e-5 * r1, 'covering radius %r vs %r' % (rs, r1))
+    return verdict + '; covering radius %.9g vs %.9g' % (rs, r1)
+
+
+def bf16_north_star(device, single, t_single, card):
+    """Phase 14b: the north star in bf16 through the public functions
+    (prepare_rmsd_frames(precision='bf16') -> kcenters_device_fused to
+    1000 centers -> lag-10 counts -> top-21 eigenpairs), tri_skip=False
+    bit for bit, the rounding check against the fp32 frames, the 4-shard
+    mesh (kernels 4 and 3 in bf16) held as phase 9 holds fp32, then the
+    kernels of 14a at their shapes. Returns launches and numbers."""
+    frames = random_walk(device)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    prep16 = engine.prepare_rmsd_frames(frames, precision='bf16')
+    torch.cuda.synchronize()
+    t_prep = time.perf_counter() - t
+    check(prep16.frames_r.dtype == torch.bfloat16, 'bf16 layout is %s'
+          % prep16.frames_r.dtype)
+    engine.kcenters_device_fused(prep16, n_clusters=N_CLUSTERS)  # warm-up
+
+    reset_launches()
+    t = time.perf_counter()
+    res = engine.kcenters_device_fused(prep16, n_clusters=N_CLUSTERS)
+    t_cl = time.perf_counter() - t
+    a = res.assignments.reshape(100, -1)
+    counts = assigns_to_counts_device(a, np.ones_like(a, bool), LAG,
+                                      N_CLUSTERS, device=device)
+    torch.cuda.synchronize()
+    t_co = time.perf_counter() - t - t_cl
+    t = time.perf_counter()
+    _, vals, vecs = transpose_timescales_device(counts, N_EIGS,
+                                                lag_time=LAG)
+    t_eig = time.perf_counter() - t
+    launches = kcenters_chunk.n_bf16_launches
+    check(launches >= N_CLUSTERS and launches == kcenters_chunk.n_launches,
+          'bf16 north star: %d bf16 of %d kernel 1 launches'
+          % (launches, kcenters_chunk.n_launches))
+    check(qcp_matrix.qcp_rmsd_matrix_kernel.n_launches == 0 and
+          ell_spmm_kernel.n_launches == 0 and
+          kcenters_iteration.n_launches == 0 and
+          kcenters_iteration_skip.n_launches == 0,
+          'the bf16 north star launched another kernel')
+    check(res.n_found == N_CLUSTERS and np.isfinite(res.distances).all(),
+          'bf16: n_found %d' % res.n_found)
+    ref_counts = np.bincount(
+        (a[:, :-LAG] * N_CLUSTERS + a[:, LAG:]).ravel(),
+        minlength=N_CLUSTERS ** 2).reshape(N_CLUSTERS, N_CLUSTERS)
+    counts_h = counts.cpu().numpy()
+    check(np.array_equal(counts_h, ref_counts), 'bf16 counts differ')
+    w_ref, pi_ref = host_eigs(counts_h)
+    eig_err = float(np.abs(vals - w_ref).max())
+    check(eig_err < 1e-4, 'bf16 eigenvalues differ by %g' % eig_err)
+
+    reset_launches()
+    off = engine.kcenters_device_fused(prep16, n_clusters=N_CLUSTERS,
+                                       tri_skip=False)
+    noskip_launches = kcenters_chunk.n_bf16_launches
+    check(noskip_launches >= N_CLUSTERS and
+          noskip_launches == kcenters_chunk.n_launches,
+          'bf16 tri_skip=False: %d bf16 launches' % noskip_launches)
+    check(all(np.array_equal(x, y) for x, y in zip(off, res)),
+          'bf16: tri_skip=False differs from tri_skip=True')
+
+    prep32 = engine.prepare_rmsd_frames(frames)
+    rounding = rounding_check(res, prep16, prep32, 'bf16 north star')
+    print('bf16 north star: %d x %d -> %d centers (%d bf16 kernel 1 '
+          'launches), max distance %.6f (fp32 %.6f); lag-%d counts equal '
+          'numpy; top-%d eigenvalues within %.2e of float64 numpy; '
+          'tri_skip=False bit for bit the same (%d launches)'
+          % (N_FRAMES, N_ATOMS, res.n_found, launches, res.distances.max(),
+             single.distances.max(), LAG, N_EIGS, eig_err, noskip_launches))
+    print(rounding)
+    print('[%s] bf16 prepare %.4f s; cluster %.4f s (fp32, phase 2: %.4f s; '
+          '%.2fx), counts %.4f s, eigsolve %.4f s, north-star %.4f s'
+          % (card, t_prep, t_cl, t_single, t_single / t_cl, t_co, t_eig,
+             t_cl + t_co + t_eig), flush=True)
+
+    # the 4-shard mesh: kernel 3 (tri_skip=False, the warm-up), kernel 4
+    mesh = FrameMesh((device,) * N_SHARDS)
+    msh = engine.prepare_rmsd_frames(frames, mesh=mesh, precision='bf16')
+    reset_launches()
+    t = time.perf_counter()
+    m_off = engine.kcenters_device_fused(msh, n_clusters=N_CLUSTERS,
+                                         mesh=mesh, tri_skip=False)
+    t_off = time.perf_counter() - t
+    k3 = kcenters_iteration.n_bf16_launches
+    check(k3 > 0 and k3 == kcenters_iteration.n_launches and
+          kcenters_iteration_skip.n_launches == 0,
+          'bf16 mesh tri_skip=False: %d bf16 kernel 3 launches' % k3)
+    reset_launches()
+    t = time.perf_counter()
+    m_on = engine.kcenters_device_fused(msh, n_clusters=N_CLUSTERS,
+                                        mesh=mesh)
+    t_on = time.perf_counter() - t
+    k4 = kcenters_iteration_skip.n_bf16_launches
+    check(k4 > 0 and k4 == kcenters_iteration_skip.n_launches and
+          kcenters_iteration.n_launches == 0 and
+          kcenters_chunk.n_launches == 0,
+          'bf16 mesh: %d bf16 kernel 4 launches' % k4)
+    check(all(np.array_equal(x, y) for x, y in zip(m_on, m_off)),
+          'bf16 mesh: tri_skip on and off differ')
+    verdict = first_divergence(
+        m_on, res, msd_bar(prep16),
+        lambda i: engine.kcenters_device_fused(msh, n_clusters=i,
+                                               mesh=mesh))
+    print('bf16 sharded path on %d shards: tri_skip on and off '
+          'bit-identical; against one device: %s' % (N_SHARDS, verdict))
+    print('[%s] bf16 sharded cluster %.4f s (kernel 4, %d launches), '
+          'tri_skip=False %.4f s (kernel 3, %d launches)'
+          % (card, t_on, k4, t_off, k3), flush=True)
+    del msh, m_on, m_off, off, prep32
+    torch.cuda.empty_cache()
+
+    nums = chunk_kernels(prep16, card)
+    whole_layout_iterations(prep16, device)
+    del prep16
+    torch.cuda.empty_cache()
+    prep = engine.prepare_rmsd_frames(frames, mesh=mesh, precision='bf16')
+    del frames
+    shard = shard_kernels(prep.shards[0], device, card, 'bf16 ')
+    nums['3'], nums['4'] = shard['3'], shard['4']
+    return {'1': launches, '2': noskip_launches, '3': k3, '4': k4}, nums
+
+
+class SkipCount:
+    """Count the tiles kernel 1 skips inside a ``with`` block (the chunk
+    wrapper's skip counts, summed after the block)."""
+
+    def __enter__(self):
+        self.fn, self.counts = engine.kcenters_chunk, []
+
+        def counted(*a, **kw):
+            ctr, skc = self.fn(*a, **kw)
+            self.counts.append(skc)
+            return ctr, skc
+        engine.kcenters_chunk = counted
+        return self
+
+    def __exit__(self, *exc):
+        engine.kcenters_chunk = self.fn
+
+    @property
+    def skipped(self):
+        return int(sum(int(c[c > 0].sum()) for c in self.counts))
+
+
+def locality_check(device, card):
+    """Phase 14c: phase 5's basin frames shuffled (seed SORT_SEED), 1M x
+    64 -> 1000 centers, unsorted and locality-sorted: skipped tiles of
+    each, the sort's cost, the sorted run's results in the caller's order
+    (each center its own cluster's, every distance the recomputed RMSD to
+    its center on the msd bar)."""
+    X = phase5_data()
+    Xs = torch.from_numpy(X[np.random.default_rng(SORT_SEED)
+                            .permutation(len(X))]).to(device)
+    del X
+    prep_u = engine.prepare_rmsd_frames(Xs)
+    engine.kcenters_device_fused(prep_u, n_clusters=N_CLUSTERS)  # warm-up
+    visits = N_CLUSTERS * (prep_u.n_pad // prep_u.tile)
+    with SkipCount() as sk_u:
+        t = time.perf_counter()
+        un = engine.kcenters_device_fused(prep_u, n_clusters=N_CLUSTERS)
+        t_u = time.perf_counter() - t
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    prep_s = engine.prepare_rmsd_frames(Xs, sort='locality')
+    torch.cuda.synchronize()
+    t_sort = time.perf_counter() - t
+    del Xs
+    with SkipCount() as sk_s:
+        t = time.perf_counter()
+        so = engine.kcenters_device_fused(prep_s, n_clusters=N_CLUSTERS)
+        t_s = time.perf_counter() - t
+    check(so.n_found == N_CLUSTERS, 'sorted n_found %d' % so.n_found)
+    check(sorted(prep_s.perm.tolist()) == list(range(prep_s.n)),
+          'the layout order is not a permutation')
+    ctr = np.asarray(so.center_indices)
+    check(np.array_equal(so.assignments[ctr], np.arange(N_CLUSTERS)),
+          'a center is not in its own cluster (caller order)')
+    bar = msd_bar(prep_u)
+    d = frame_center_rmsd(prep_u, ctr[so.assignments])
+    check(rmsd_close(so.distances, d, bar), 'sorted distances differ from '
+          'the recomputed RMSD to their centers')
+    check(sk_s.skipped > sk_u.skipped, 'the sort skipped %d tiles, the '
+          'shuffled order %d' % (sk_s.skipped, sk_u.skipped))
+    print('locality sort on shuffled basin data, %d x %d -> %d: skipped '
+          'tile visits %d unsorted, %d sorted, of %d; the sorted results in '
+          'the caller\'s order, every distance the recomputed RMSD on the '
+          'msd bar; covering radius %.6f sorted, %.6f unsorted'
+          % (N_FRAMES, N_ATOMS, N_CLUSTERS, sk_u.skipped, sk_s.skipped,
+             visits, so.distances.max(), un.distances.max()))
+    print('[%s] sort (key, argsort, layout) %.4f s; cluster unsorted %.4f s,'
+          ' sorted %.4f s' % (card, t_sort, t_u, t_s), flush=True)
+    del prep_u, prep_s
+    torch.cuda.empty_cache()
+
+
+def ingest_check(device, card):
+    """Phase 14d: a 1M x 64 host array ingested streamed (pinned chunks
+    on a side stream) and in one copy, in both precisions, in turns
+    (one copy, streamed, streamed, one copy): the same bits."""
+    X = random_walk(device).cpu().numpy()
+    for precision in ('fp32', 'bf16'):
+        times, preps = {'one copy': [], 'streamed': []}, {}
+        for turn in ('one copy', 'streamed', 'streamed', 'one copy'):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            p = engine.prepare_rmsd_frames(X, precision=precision,
+                                           stream=turn == 'streamed')
+            torch.cuda.synchronize()
+            times[turn].append(time.perf_counter() - t)
+            preps.setdefault(turn, p)
+            del p
+        a, b = preps['one copy'], preps['streamed']
+        check(torch.equal(a.frames_r, b.frames_r) and torch.equal(a.g, b.g),
+              '%s: the streamed layout differs from the one copy'
+              % precision)
+        check(a.frames_r.dtype == engine._FRAME_DTYPE[precision],
+              '%s layout is %s' % (precision, a.frames_r.dtype))
+        print('[%s] ingest of a %d x %d host array, %s: one copy %s s, '
+              'streamed (%d MiB chunks) %s s; bit for bit the same'
+              % (card, N_FRAMES, N_ATOMS, precision,
+                 ' / '.join('%.4f' % x for x in times['one copy']),
+                 engine._STREAM_CHUNK_BYTES >> 20,
+                 ' / '.join('%.4f' % x for x in times['streamed'])),
+              flush=True)
+        del preps, a, b
+        torch.cuda.empty_cache()
+
+
+def cli_check(device, card):
+    """Phase 14e: `cluster --algorithm kcenters --cluster-number 1000` on
+    the first BF16_CLI_FILES of phase 5's XTC files, with --precision
+    bf16 and then with --locality-sort (the app's sequence but for its
+    .h5 writes); the center indices and structures read back and checked
+    against the frames, every distance against its recomputed RMSD."""
+    with tempfile.TemporaryDirectory() as d:
+        pdb, trjs, gsum = write_trajectories(d, BF16_CLI_FILES)
+        bar = bar_from(gsum, N_ATOMS)
+        for flag in (['--precision', 'bf16'], ['--locality-sort']):
+            out = {k: os.path.join(d, v) for k, v in (
+                ('--distances', 'dist.h5'), ('--assignments', 'assig.h5'),
+                ('--center-features', 'centers.pkl'),
+                ('--center-indices', 'inds.npy'))}
+            argv = ['cluster', '--trajectories', *trjs, '--topology', pdb,
+                    '--atoms', 'name CA', '--algorithm', 'kcenters',
+                    '--cluster-number', str(N_CLUSTERS), *flag]
+            for k, v in out.items():
+                argv += [k, v]
+            reset_launches()
+            args = cluster_app.process_command_line(argv)
+            t = time.perf_counter()
+            lengths, data = cluster_util.load_trjs_or_features(args)
+            t_load = time.perf_counter() - t
+            t = time.perf_counter()
+            clustering = cluster_app.fit(args, data, device)
+            torch.cuda.synchronize()
+            t_fit = time.perf_counter() - t
+            bf16 = flag[0] == '--precision'
+            n1, n16 = kcenters_chunk.n_launches, kcenters_chunk.n_bf16_launches
+            check(n1 > 0 and n16 == (n1 if bf16 else 0),
+                  '%s: %d kernel 1 launches, %d on bf16' % (flag[0], n1, n16))
+            res = clustering.result_
+            result = res.partition(lengths)
+            t = time.perf_counter()
+            cluster_util.write_centers_indices(
+                args.center_indices, cluster_app.center_indices(result, args))
+            cluster_util.write_centers(result, args)
+            t_write = time.perf_counter() - t
+
+            inds = np.load(out['--center-indices'])
+            with open(out['--center-features'], 'rb') as f:
+                centers = pickle.load(f)
+            xyz = data.xyz
+            glob = [t_ * TRJ_FRAMES + f_ for t_, f_ in inds]
+            check(len(centers) == N_CLUSTERS and len(set(glob)) == N_CLUSTERS,
+                  '%s: %d centers read back' % (flag[0], len(centers)))
+            check(all(np.array_equal(c.xyz[0], xyz[g])
+                      for c, g in zip(centers, glob)),
+                  '%s: a center structure is not its frame' % flag[0])
+            check(np.array_equal(res.assignments[glob], np.arange(N_CLUSTERS)),
+                  '%s: a center is not in its own cluster' % flag[0])
+            p32 = engine.prepare_rmsd_frames(xyz, device=device)
+            ctr_of = np.asarray(glob)[res.assignments]
+            if bf16:
+                p16 = engine.prepare_rmsd_frames(xyz, device=device,
+                                                 precision='bf16')
+                verdict = rounding_check(res, p16, p32, '--precision bf16')
+                del p16
+            else:
+                check(rmsd_close(res.distances,
+                                 frame_center_rmsd(p32, ctr_of), bar),
+                      '--locality-sort: distances differ from the '
+                      'recomputed RMSD to their centers')
+                verdict = ('--locality-sort: every distance the recomputed '
+                           'RMSD to its center on the msd bar')
+            del p32
+            print('cluster CLI, %d XTC files x %d frames, kcenters -> %d, '
+                  '%s: %d kernel 1 launches (%d on bf16); centers read back '
+                  'equal to their frames; %s'
+                  % (BF16_CLI_FILES, TRJ_FRAMES, N_CLUSTERS, ' '.join(flag),
+                     n1, n16, verdict))
+            print('[%s] cluster CLI %s: load %.4f s, cluster %.4f s, write '
+                  'centers %.4f s' % (card, ' '.join(flag), t_load, t_fit,
+                                      t_write), flush=True)
+
+
+def bf16_path(device, single, t_single, card):
+    """Phase 14: the bf16 frame stream, the locality sort, the streamed
+    ingest and the CLI flags. Returns kernel launches and numbers of the
+    bf16 kernels."""
+    launches, nums = bf16_north_star(device, single, t_single, card)
+    torch.cuda.empty_cache()
+    locality_check(device, card)
+    ingest_check(device, card)
+    cli_check(device, card)
+    print('[%s] phase 14 (bf16, locality sort, streamed ingest, CLI flags) '
+          'passed' % card, flush=True)
+    return launches, nums
+
+
 def main():
     card = card_line()
     print('card:', card, flush=True)
@@ -3072,62 +3605,10 @@ def main():
                                     noskip_launches), flush=True)
 
     # -- 3. the kernel and its plain version at the main path's shapes -----
-    start = fresh_state(prep)
-
-    def noskip(prep, state, n_iters):
-        return kcenters_chunk(prep, state, n_iters, skip=False)
-    fns = {'plain': kcenters_chunk_plain, 'kernel': kcenters_chunk,
-           'noskip': noskip}
-    one = {name: run_chunk(fn, prep, clone(start), 1)
-           for name, fn in fns.items()}
-    fin = np.isfinite(one['plain'][0])
-    err = {}
-    for name in ('kernel', 'noskip'):
-        err[name] = float(np.abs(one[name][0][fin]
-                                 - one['plain'][0][fin]).max())
-        check(rmsd_close(one[name][0], one['plain'][0], msd_bar(prep)),
-              'one iteration at full size (%s): distances outside the msd '
-              'bar' % name)
-    max_abs_err = err['kernel']
-    times = {name: [] for name in fns}
-    outs = {}
-    turns = ('plain', 'kernel', 'noskip', 'noskip', 'kernel', 'plain')
-    for name in turns:
-        ms, outs[name] = timed_chunk(fns[name], prep, start, TIMED_ITERS)
-        times[name].append(ms)
-    print(compare_chunks(prep, start, outs['kernel'], outs['plain'],
-                         TIMED_ITERS, '%d x %d x %d kernel vs plain'
-                         % (N_FRAMES, N_ATOMS, TIMED_ITERS)))
-    check(all(np.array_equal(x, y)
-              for x, y in zip(outs['noskip'], outs['kernel'])),
-          'skip=False differs from skip=True at full size')
-    ms, plain_ms = min(times['kernel']), min(times['plain'])
-    # per iteration: the frames of the tiles not skipped, G, and dist and
-    # assig read and written; 9 * A_pad fp32 FMAs per frame
-    rows, n_pad = prep.frames_r.shape
-    skc = outs['kernel'][6]
-    visited = 1.0 - skc[skc > 0].sum() / (TIMED_ITERS * (n_pad // prep.tile))
-    kc_bound = bound(4 * (rows * n_pad * visited + 5 * n_pad),
-                     2 * 3 * rows * n_pad)
-    # kernel 2 reads every tile
-    noskip_bound = bound(4 * (rows * n_pad + 5 * n_pad),
-                         2 * 3 * rows * n_pad)
-    noskip_nums = {'max_abs_err': err['noskip'],
-                   'ms': min(times['noskip']), 'plain_ms': plain_ms,
-                   'bound_ms': noskip_bound[0], 'bound_by': noskip_bound[1],
-                   'library_ms': None}
-    print('[%s] per iteration at %d x %d: kernel %.4f ms, skip=False '
-          '%.4f ms, plain %.4f ms, bound %.4f ms (%s), skip=False %.4f ms '
-          '(turns %s: %s); one-iteration max |kernel - plain| %.3g, '
-          'skip=False %.3g; skip=False bit for bit the same'
-          % (card, N_FRAMES, N_ATOMS, ms, noskip_nums['ms'], plain_ms,
-             kc_bound[0], kc_bound[1], noskip_bound[0], ', '.join(turns),
-             ', '.join('%.4f' % times[n][turns[:i].count(n)]
-                       for i, n in enumerate(turns)),
-             max_abs_err, err['noskip']), flush=True)
+    kc = chunk_kernels(prep, card)
 
     single, t_single = res, t_cl
-    del frames, prep, res, counts, start, outs, off, one
+    del frames, prep, res, counts, off
     torch.cuda.empty_cache()
 
     # -- 4. the all-pairs QCP kernel and its plain version -----------------
@@ -3198,24 +3679,29 @@ def main():
 
     # -- 13. SASA, exposons, RMSF, helix, pockets, the point-cloud route ---
     structure_path(device, card)
+    torch.cuda.empty_cache()
+
+    # -- 14. bf16 frames, the locality sort, streamed ingest, CLI flags ----
+    bf16_launches, bf16 = bf16_path(device, single, t_single, card)
     print('launches: north star kcenters_step %d; north star tri_skip=False '
           'kcenters_step_noskip %d; cluster -> reassign kcenters_step %d, '
           'qcp_matrix %d; scale-point eigensolve ell_spmm %d; implied '
           'timescales ell_spmm %d; sharded path kcenters_iteration_skip %d; '
+          'tri_skip=False qcp_update %d; bf16 north star kcenters_step %d, '
+          'tri_skip=False %d; bf16 sharded kcenters_iteration_skip %d, '
           'tri_skip=False qcp_update %d'
           % (launches, noskip_launches, path['kcenters_step'],
              path['qcp_matrix'], ell_launches, its_launches,
-             sharded['kcenters_iteration_skip'], sharded['qcp_update']))
+             sharded['kcenters_iteration_skip'], sharded['qcp_update'],
+             bf16_launches['1'], bf16_launches['2'], bf16_launches['4'],
+             bf16_launches['3']))
 
     print(json.dumps({'kernels': [{
         'name': 'kcenters_step', 'route': 'cuda', 'source': SOURCE,
-        'replaces': REPLACES, 'launches': launches,
-        'max_abs_err': max_abs_err, 'ms': ms, 'plain_ms': plain_ms,
-        'bound_ms': kc_bound[0], 'bound_by': kc_bound[1],
-        'library_ms': None}, {
+        'replaces': REPLACES, 'launches': launches, **kc['1']}, {
         'name': 'kcenters_step_noskip', 'route': 'cuda', 'source': SOURCE,
         'replaces': NOSKIP_REPLACES, 'launches': noskip_launches,
-        **noskip_nums}, {
+        **kc['2']}, {
         'name': 'qcp_matrix', 'route': 'cuda', 'source': QCP_SOURCE,
         'replaces': QCP_REPLACES, 'launches': path['qcp_matrix'],
         'max_abs_err': qcp_err, 'ms': qcp_ms, 'plain_ms': qcp_plain_ms,
@@ -3228,7 +3714,19 @@ def main():
         **it['3']}, {
         'name': 'kcenters_iteration_skip', 'route': 'cuda', 'source': SOURCE,
         'replaces': SKIP_REPLACES,
-        'launches': sharded['kcenters_iteration_skip'], **it['4']}]}))
+        'launches': sharded['kcenters_iteration_skip'], **it['4']}, {
+        'name': 'kcenters_step_bf16', 'route': 'cuda', 'source': SOURCE,
+        'replaces': BF16_REPLACES['1'], 'launches': bf16_launches['1'],
+        **bf16['1']}, {
+        'name': 'kcenters_step_noskip_bf16', 'route': 'cuda',
+        'source': SOURCE, 'replaces': BF16_REPLACES['2'],
+        'launches': bf16_launches['2'], **bf16['2']}, {
+        'name': 'qcp_update_bf16', 'route': 'cuda', 'source': UPDATE_SOURCE,
+        'replaces': BF16_REPLACES['3'], 'launches': bf16_launches['3'],
+        **bf16['3']}, {
+        'name': 'kcenters_iteration_skip_bf16', 'route': 'cuda',
+        'source': SOURCE, 'replaces': BF16_REPLACES['4'],
+        'launches': bf16_launches['4'], **bf16['4']}]}))
     print(card)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

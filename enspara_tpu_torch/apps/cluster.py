@@ -14,11 +14,14 @@ euclidean or manhattan distance, into a state space (counterpart of
 ``--checkpoint DIR`` saves the final clustering state there (the JAX
 package's format, :mod:`enspara_tpu_torch.util.checkpoint`); a DIR that
 already holds a manifest warm-starts ``--algorithm kmedoids`` from it.
+``--precision bf16`` streams the frames in bfloat16 through the
+k-centers kernels and ``--locality-sort`` clusters a locality-sorted
+layout (both ``--algorithm kcenters`` by rmsd only, as in the JAX app).
 
 It runs on the CUDA device; ``ENSPARA_TPU_PLATFORM=cpu`` runs it on the
-CPU, where every kernel takes its plain version. Options whose
-machinery is not ported yet raise ``ImproperlyConfigured`` naming the
-ROADMAP.md step that brings them.
+CPU, where every kernel takes its plain version. The multi-process mode
+is not ported yet and raises ``ImproperlyConfigured`` naming the
+ROADMAP.md step that brings it.
 """
 
 import argparse
@@ -119,11 +122,15 @@ def process_command_line(argv):
     cluster_args.add_argument(
         '--locality-sort', default=False, action='store_true',
         help='Reorder frames by a 1-pivot RMSD key before clustering '
-             '(not ported yet).')
+             'so the tri-skip kernels can skip provably inert tiles even '
+             'on temporally shuffled data (kcenters + rmsd only). Finds '
+             'a different, equally valid, Gonzalez covering than the '
+             'unsorted order.')
     cluster_args.add_argument(
         '--precision', default='fp32', choices=['fp32', 'bf16'],
-        help='Frame precision of the k-centers stream (bf16 is not '
-             'ported yet).')
+        help='bf16 streams frames as bfloat16 through the k-centers '
+             'kernels: half the frame bytes at ~4e-3 relative distance '
+             'rounding (kcenters + rmsd only).')
 
     output_args = parser.add_argument_group('Output Settings')
     output_args.add_argument(
@@ -214,10 +221,6 @@ def process_command_line(argv):
         raise exception.ImproperlyConfigured(
             '--locality-sort is only implemented for kcenters with '
             'the rmsd metric (the fused TPU tri-skip path).')
-    if args.precision != 'fp32':
-        raise _not_ported('--precision bf16', '3')
-    if args.locality_sort:
-        raise _not_ported('--locality-sort', '3')
     if args.Clusterer is not KMedoids:
         for name in (args.init_center_inds, args.init_distances,
                      args.init_assignments):
@@ -263,6 +266,10 @@ def fit(args, data, device):
         kwargs['cluster_radius'] = args.cluster_radius
     if args.random_state is not None:
         kwargs['random_state'] = args.random_state
+    if args.precision != 'fp32':
+        kwargs['precision'] = args.precision
+    if args.locality_sort:
+        kwargs['sort'] = 'locality'
     clustering = args.Clusterer(metric=args.cluster_distance,
                                 n_clusters=args.cluster_number,
                                 device=device, **kwargs)

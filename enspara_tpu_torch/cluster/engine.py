@@ -22,6 +22,14 @@ and the frame axis minor, plus a per-frame G row. A host loop then runs
 the k-centers chunk (:mod:`enspara_tpu_torch.ops.kcenters_step`, the
 tri-skip CUDA kernel on the card) ``CHUNK`` centers at a time, reading
 32 bytes of state back after each chunk to decide whether to go on.
+``precision='bf16'`` stores the layout in bfloat16 (centered in
+float32, rounded once, G from the rounded coordinates), which the
+k-centers kernels stream at half the bytes; ``sort='locality'`` lays
+the frames out in the order of their RMSD to frame 0, so that tiles
+hold similar frames and the tri-skip finds tiles to skip in shuffled
+data, and results come back in the caller's order. A host array larger
+than one ``_STREAM_CHUNK_BYTES`` chunk crosses to the card in chunks
+through pinned buffers, each laid out while the next one is copied.
 
 Padding frames carry ``g = 1.0`` and ``distance = -inf``: they are
 never chosen as a center, never count toward the stop rule and keep
@@ -55,6 +63,7 @@ import torch
 from ..ops.distances import distance_to_point, pairwise_distance
 from ..ops.kcenters_step import (kcenters_chunk, kcenters_iteration_skip,
                                  skip_t_pad, start_state, tile_summaries)
+from ..ops.qcp import qcp_rmsd_vector
 from ..ops.qcp_matrix import (TILE_C, pad_centers, pad_frames,
                               qcp_rmsd_matrix_block, to_layout)
 from ..ops.qcp_update import kcenters_iteration
@@ -76,6 +85,10 @@ TILE = 256
 # centers per chunk: the host reads the loop state once per chunk
 CHUNK = 64
 _IMAX32 = 2 ** 31 - 1
+# the frame types of the k-centers layout
+_FRAME_DTYPE = {'fp32': torch.float32, 'bf16': torch.bfloat16}
+# host bytes of float32 coordinates a chunk of the streamed ingest
+_STREAM_CHUNK_BYTES = 64 * (1 << 20)
 
 
 class KCentersDeviceResult(NamedTuple):
@@ -89,12 +102,16 @@ class PreparedRMSDFrames(NamedTuple):
     """Frames ingested once into the k-centers layout on one device;
     build with :func:`prepare_rmsd_frames` and pass to
     :func:`kcenters_device_fused` in place of coordinates to reuse the
-    layout across runs (warm starts, cutoff scans)."""
-    frames_r: torch.Tensor     # (3*A_pad, n_pad) float32
+    layout across runs (warm starts, cutoff scans). ``perm``
+    (``sort='locality'``) is the layout's frame order: position ``i``
+    holds the caller's frame ``perm[i]``."""
+    frames_r: torch.Tensor     # (3*A_pad, n_pad) float32 or bfloat16
     g: torch.Tensor            # (1, n_pad) float32; 1.0 past n
     n: int                     # real frame count
     n_atoms: int               # real atom count
     tile: int
+    precision: str = 'fp32'    # 'bf16': frames_r holds bfloat16
+    perm: object = None        # (n,) int64 numpy layout order, or None
 
     @property
     def metric(self):
@@ -156,6 +173,8 @@ class ShardedRMSDFrames(NamedTuple):
     tile: int
     n_shards: int              # shards of the whole mesh
     first_shard: int = 0       # global index of shards[0]
+    precision: str = 'fp32'
+    perm: object = None        # (n,) int64 global layout order, or None
 
     @property
     def n_local(self):
@@ -166,17 +185,98 @@ class ShardedRMSDFrames(NamedTuple):
         return 'rmsd'
 
 
-def _layout(X, n_pad, a_pad):
-    """Centered ``(n, A, 3)`` float32 frames -> the ``(3*a_pad, n_pad)``
-    layout and the (1, n_pad) G row, 1.0 past n, on X's device."""
+def _center(X):
+    """``(n, A, 3)`` float32 frames less each frame's centroid. The
+    centroid adds the atoms one after another, so a frame's result does
+    not depend on the other frames of the call: a chunk of the streamed
+    ingest rounds as the whole array does."""
+    s = X[:, 0, :].clone()
+    for a in range(1, X.shape[1]):
+        s += X[:, a, :]
+    return X - (s / X.shape[1])[:, None, :]
+
+
+def _ingest(X, frames3, g, off, centered=False):
+    """Lay ``(m, A, 3)`` float32 frames ``X`` (centered here unless
+    ``centered``) into columns ``[off, off + m)`` of the ``(3, A_pad,
+    n_pad)`` layout ``frames3``, rounding once to its dtype, and their G
+    into ``g`` (1, n_pad). G sums the squares of the stored (rounded)
+    coordinates, so G and the kernels' S see the same values and a
+    frame's self-distance stays ~0; it adds them atom by atom, x y z,
+    each product and sum rounded on its own, the order in which the
+    chunk kernel sums a center's G (``ops.kcenters_step.center_g``).
+    No result depends on the chunk a frame came in."""
+    m, A = int(X.shape[0]), int(X.shape[1])
+    if not centered:
+        X = _center(X)
+    dst = frames3[:, :A, off:off + m]
+    dst.copy_(X.permute(2, 1, 0))
+    sq = [v * v for v in dst.float()]
+    acc = sq[0][0].clone()
+    for a in range(A):     # XLA's order on the CPU too
+        for i in range(3):
+            if a or i:
+                acc += sq[i][a]
+    g[0, off:off + m] = acc
+
+
+def _empty_layout(n_pad, a_pad, precision, device):
+    """Zero ``(3, a_pad, n_pad)`` frames of the precision's dtype and a
+    (1, n_pad) G row of 1.0, the padding's values."""
+    return (torch.zeros((3, a_pad, n_pad), dtype=_FRAME_DTYPE[precision],
+                        device=device),
+            torch.ones((1, n_pad), dtype=torch.float32, device=device))
+
+
+def _layout(X, n_pad, a_pad, precision='fp32', centered=False):
+    """``(n, A, 3)`` float32 frames -> the ``(3*a_pad, n_pad)`` layout
+    and the (1, n_pad) G row, 1.0 past n, on X's device."""
+    frames3, g = _empty_layout(n_pad, a_pad, precision, X.device)
+    _ingest(X, frames3, g, 0, centered)
+    return frames3.view(3 * a_pad, n_pad), g
+
+
+def _layout_streamed(X, n_pad, a_pad, precision, device):
+    """The layout of host coordinates ``X`` (numpy, or anything that
+    slices to numpy), crossing in chunks of ``_STREAM_CHUNK_BYTES`` of
+    float32: on a CUDA device through two pinned host buffers, each
+    chunk copied on a side stream while the one before it is laid out on
+    the current stream; on the CPU one chunk after another. Bit for bit
+    the monolithic layout (:func:`_ingest` rounds a frame alike in any
+    chunk). The last chunk stops at the real frames: nothing is written
+    past them, and the padding keeps its zeros and G = 1.0."""
     n, A = int(X.shape[0]), int(X.shape[1])
-    centered = X - X.mean(dim=1, keepdim=True)
-    g = torch.ones((1, n_pad), dtype=torch.float32, device=X.device)
-    g[0, :n] = (centered * centered).sum(dim=(1, 2))
-    frames = torch.zeros((3, a_pad, n_pad), dtype=torch.float32,
-                         device=X.device)
-    frames[:, :A, :n] = centered.permute(2, 1, 0)
-    return frames.view(3 * a_pad, n_pad), g
+    cf = max(1, _STREAM_CHUNK_BYTES // (A * 3 * 4))
+    frames3, g = _empty_layout(n_pad, a_pad, precision, device)
+    if device.type != 'cuda':
+        for off in range(0, n, cf):
+            chunk = np.array(X[off:off + cf], dtype=np.float32)
+            _ingest(torch.from_numpy(chunk).to(device), frames3, g, off)
+        return frames3.view(3 * a_pad, n_pad), g
+    main = torch.cuda.current_stream(device)
+    side = torch.cuda.Stream(device)
+    host = [torch.empty((cf, A, 3), dtype=torch.float32, pin_memory=True)
+            for _ in range(2)]
+    dev = [torch.empty((cf, A, 3), dtype=torch.float32, device=device)
+           for _ in range(2)]
+    copied, laid = [None, None], [None, None]
+    for k, off in enumerate(range(0, n, cf)):
+        b, m = k % 2, min(cf, n - off)
+        if copied[b] is not None:
+            copied[b].synchronize()        # host[b] has left for the card
+        host[b][:m].numpy()[...] = X[off:off + m]
+        with torch.cuda.stream(side):
+            if laid[b] is not None:
+                side.wait_event(laid[b])   # dev[b]'s last chunk is laid out
+            dev[b][:m].copy_(host[b][:m], non_blocking=True)
+            copied[b] = side.record_event()
+        main.wait_event(copied[b])
+        _ingest(dev[b][:m], frames3, g, off)
+        laid[b] = main.record_event()
+    for ev in copied:
+        if ev is not None:
+            ev.synchronize()
+    return frames3.view(3 * a_pad, n_pad), g
 
 
 def _check_coordinates(X):
@@ -185,33 +285,90 @@ def _check_coordinates(X):
                          'coordinates, got %s' % (tuple(X.shape),))
 
 
-def prepare_rmsd_frames(X, tile=TILE, device=None, mesh=None):
+def _locality_sort(X, device):
+    """Frames reordered by a one-pivot key, their QCP RMSD to frame 0
+    (JAX ``engine.py:789-809``), so that a tile holds similar frames and
+    the tri-skip, which skips a tile only when every frame of it is
+    provably unmoved, finds tiles to skip in temporally shuffled data.
+    The covering found is another one, as valid, than the unsorted
+    order's. Returns the centered sorted frames on ``device`` and the
+    permutation (layout position -> the caller's index) as int64 numpy;
+    ``torch.argsort`` is stable, as ``jnp.argsort`` is."""
+    X = torch.as_tensor(X if isinstance(X, torch.Tensor) else np.asarray(X),
+                        dtype=torch.float32, device=device)
+    _check_coordinates(X)
+    data = _center(X)
+    g_all = (data * data).sum(dim=(1, 2))
+    key = qcp_rmsd_vector(data, data[0], g_all, g_all[0])
+    perm = torch.argsort(key, stable=True)
+    return data[perm], perm.cpu().numpy().astype(np.int64)
+
+
+def prepare_rmsd_frames(X, tile=TILE, device=None, mesh=None,
+                        precision='fp32', stream='auto', sort=None):
     """Ingest ``(n, n_atoms, 3)`` coordinates (numpy or a tensor) into
     the k-centers layout on ``device`` (default: where a tensor ``X``
-    lies, the card for host data).
-    Frames are centered here; ``A_pad`` is the atom count rounded up to
-    a multiple of 8 and ``n_pad`` the frame count rounded up to a
-    multiple of ``tile``.
+    lies, the card for host data), with the JAX package's contract
+    (``engine.py:812-897``).
+    Frames are centered here in float32; ``A_pad`` is the atom count
+    rounded up to a multiple of 8 and ``n_pad`` the frame count rounded
+    up to a multiple of ``tile``.
+
+    ``precision='bf16'`` rounds the centered coordinates once to
+    bfloat16 and takes G from the rounded ones: the k-centers kernels
+    then stream half the bytes and compute in float32. (The JAX package
+    pads atoms to 16 in bf16 for the TPU's tiling; here ``A_pad`` stays
+    a multiple of 8, and padding atoms are zero either way.)
+
+    ``stream='auto'`` (or True) ingests a host array larger than one
+    ``_STREAM_CHUNK_BYTES`` chunk on one device chunk by chunk
+    (:func:`_layout_streamed`), bit for bit the monolithic layout;
+    ``stream=False`` forces the one copy.
+
+    ``sort='locality'`` lays the frames out in the order of their RMSD
+    to frame 0 (:func:`_locality_sort`) and keeps the permutation in
+    ``perm``; :func:`kcenters_device_fused` maps its results back to the
+    caller's order.
 
     With a ``mesh`` of more than one shard, returns a
     :class:`ShardedRMSDFrames`: ``n_pad`` rounded up to a multiple of
     ``tile * mesh.size`` and each of this process's shards laid out on
     its device. A one-shard mesh prepares on its device."""
+    if precision not in _FRAME_DTYPE:
+        raise ValueError("precision must be 'fp32' or 'bf16', got %r"
+                         % (precision,))
+    if sort not in (None, 'locality'):
+        raise ValueError("sort must be None or 'locality', got %r"
+                         % (sort,))
     if mesh is not None:
         if device is not None:
             raise ValueError('pass device= or mesh=, not both')
-        if mesh.size > 1:
-            return _prepare_sharded(X, tile, mesh)
-        device = mesh.devices[0]
-    device = resolve_device(X, device)
-    X = torch.as_tensor(X, dtype=torch.float32, device=device)
+        if mesh.size == 1:
+            device, mesh = mesh.devices[0], None
+    device = mesh.lead if mesh is not None else resolve_device(X, device)
+    perm = None
+    if sort == 'locality':
+        X, perm = _locality_sort(X, device)
+    if mesh is not None:
+        return _prepare_sharded(X, tile, mesh, precision, perm)
+    if not isinstance(X, torch.Tensor) and not hasattr(X, 'shape'):
+        X = np.asarray(X)
     _check_coordinates(X)
     n, A = int(X.shape[0]), int(X.shape[1])
-    frames, g = _layout(X, -(-n // tile) * tile, -(-A // 8) * 8)
-    return PreparedRMSDFrames(frames, g, n, A, int(tile))
+    n_pad, a_pad = -(-n // tile) * tile, -(-A // 8) * 8
+    if (stream in ('auto', True) and not isinstance(X, torch.Tensor)
+            and n > _STREAM_CHUNK_BYTES // (A * 3 * 4)):
+        frames, g = _layout_streamed(X, n_pad, a_pad, precision, device)
+    else:
+        X = torch.as_tensor(X if isinstance(X, torch.Tensor)
+                            else np.asarray(X), dtype=torch.float32,
+                            device=device)
+        frames, g = _layout(X, n_pad, a_pad, precision,
+                            centered=perm is not None)
+    return PreparedRMSDFrames(frames, g, n, A, int(tile), precision, perm)
 
 
-def _prepare_sharded(X, tile, mesh):
+def _prepare_sharded(X, tile, mesh, precision='fp32', perm=None):
     if not isinstance(X, torch.Tensor):
         X = np.asarray(X)
     _check_coordinates(X)
@@ -223,11 +380,12 @@ def _prepare_sharded(X, tile, mesh):
         lo = min((mesh.first_shard + s) * n_local, n)
         part = torch.as_tensor(X[lo:min(lo + n_local, n)],
                                dtype=torch.float32, device=dev)
-        frames, g = _layout(part, n_local, a_pad)
+        frames, g = _layout(part, n_local, a_pad, precision,
+                            centered=perm is not None)
         shards.append(PreparedRMSDFrames(frames, g, int(part.shape[0]), A,
-                                         int(tile)))
+                                         int(tile), precision))
     return ShardedRMSDFrames(tuple(shards), n, A, int(tile), mesh.size,
-                             mesh.first_shard)
+                             mesh.first_shard, precision, perm)
 
 
 def _prepare_data(X, metric):
@@ -286,10 +444,11 @@ _PREPARED = (PreparedRMSDFrames, ShardedRMSDFrames, PreparedFeatures,
              ShardedFeatures)
 
 
-def _prepared(X, metric, device=None, mesh=None, tile=None):
+def _prepared(X, metric, device=None, mesh=None, tile=None, **kw):
     """``X`` when it is already prepared for ``metric`` and ``mesh``
     (raising when its metric, shard count or tile disagree), else ``X``
-    prepared."""
+    prepared (RMSD frames with the keywords ``kw`` of
+    :func:`prepare_rmsd_frames`)."""
     if isinstance(X, _PREPARED):
         if _canonical(X.metric) != _canonical(metric):
             raise ValueError('frames prepared for metric %r, got metric=%r'
@@ -306,7 +465,7 @@ def _prepared(X, metric, device=None, mesh=None, tile=None):
         return X
     if metric == 'rmsd':
         return prepare_rmsd_frames(X, tile=tile or TILE, device=device,
-                                   mesh=mesh)
+                                   mesh=mesh, **kw)
     return prepare_sharded(X, metric, mesh=mesh, device=device)
 
 
@@ -412,7 +571,7 @@ def _kcenters_loop_fused_sharded(prep, dist, assig, n_start, n_clusters,
         parts = []
         for s, sh in enumerate(prep.shards):
             li = lidx.to(sh.g.device)
-            cg = torch.cat((sh.frames_r.index_select(1, li),
+            cg = torch.cat((sh.frames_r.index_select(1, li).float(),
                             sh.g.index_select(1, li)))
             parts.append(cg.to(lead) * onehot[s])
         cg = mesh.all_reduce(torch.stack(parts).sum(0))
@@ -457,9 +616,10 @@ def kcenters_device_fused(X, n_clusters=None, dist_cutoff=None,
                           k_max=None, init_distances=None,
                           init_assignments=None, n_init_centers=0,
                           init_center_indices=None, tile=None,
-                          device=None, mesh=None, tri_skip=True):
+                          device=None, mesh=None, tri_skip=True,
+                          precision=None, sort=None):
     """K-centers by QCP RMSD on one device or over the shards of a
-    mesh.
+    mesh (JAX ``engine.py:900-1030``).
 
     ``X`` is a :class:`PreparedRMSDFrames`, which clusters where its
     frames lie, a :class:`ShardedRMSDFrames` laid out for ``mesh``, or
@@ -478,10 +638,31 @@ def kcenters_device_fused(X, n_clusters=None, dist_cutoff=None,
     one-iteration kernel that skips nothing. The results are the same
     either way. On the CPU each kernel takes its plain version.
 
+    ``precision`` ('fp32' or 'bf16') and ``sort`` (None or 'locality')
+    are :func:`prepare_rmsd_frames`'s for coordinates (``None`` is
+    'fp32'). Prepared frames keep their own: ``precision=None`` inherits
+    it, a different explicit one raises, and ``sort='locality'`` on
+    unsorted frames raises. bf16 frames run the same loops on the bf16
+    kernels, whose distances carry the coordinates' rounding (about
+    4e-3 relative); a sorted layout finds another, as valid, covering
+    and its results come back in the caller's frame order, a warm start
+    given in it too.
+
     Returns a :class:`KCentersDeviceResult` of host arrays (on every
     process of a mesh that spans processes).
     """
-    prep = _prepared(X, 'rmsd', device, mesh, tile)
+    if isinstance(X, (PreparedRMSDFrames, ShardedRMSDFrames)):
+        if precision is not None and precision != X.precision:
+            raise ValueError('prepared frames are %s, got precision=%s'
+                             % (X.precision, precision))
+        if sort is not None and X.perm is None:
+            raise ValueError("sort='locality' applies at preparation "
+                             'time; these prepared frames are unsorted: '
+                             "rebuild with prepare_rmsd_frames(..., "
+                             "sort='locality')")
+    prep = _prepared(X, 'rmsd', device, mesh, tile,
+                     precision=precision or 'fp32', sort=sort)
+    perm = prep.perm
     n = prep.n
     sharded = isinstance(prep, ShardedRMSDFrames)
     n_pad = prep.n_local * prep.n_shards if sharded \
@@ -497,8 +678,10 @@ def kcenters_device_fused(X, n_clusters=None, dist_cutoff=None,
     dist = np.full((1, n_pad), np.inf, np.float32)
     assig = np.full((1, n_pad), -1, np.int32)
     if init_distances is not None:
-        dist[0, :n] = init_distances
-        assig[0, :n] = init_assignments
+        # the warm start comes in the caller's order, the layout may not
+        order = slice(None) if perm is None else perm
+        dist[0, :n] = np.asarray(init_distances)[order]
+        assig[0, :n] = np.asarray(init_assignments)[order]
     dist[0, n:] = -math.inf
 
     if sharded:
@@ -525,6 +708,13 @@ def kcenters_device_fused(X, n_clusters=None, dist_cutoff=None,
         dists = dist_t[0, :n].cpu().numpy()
         assigs = assig_t[0, :n].cpu().numpy()
     ctr_inds = ctr[:n_found].cpu().numpy().astype(np.int64)
+    if perm is not None:
+        # layout position i is the caller's frame perm[i]
+        dists_o, assigs_o = np.empty_like(dists), np.empty_like(assigs)
+        dists_o[perm], assigs_o[perm] = dists, assigs
+        dists, assigs = dists_o, assigs_o
+        placed = ctr_inds >= 0
+        ctr_inds[placed] = perm[ctr_inds[placed]]
     if init_center_indices is not None:
         ctr_inds[:n_init_centers] = init_center_indices
     return KCentersDeviceResult(dists.astype(np.float64),
@@ -631,9 +821,10 @@ def kcenters_device(X, metric='euclidean', n_clusters=None,
     dist_cutoff``; warm starts pass the previous run's
     ``init_distances``/``init_assignments`` with ``n_init_centers`` and
     optionally ``init_center_indices``. The results do not depend on the
-    shard count. ``precision='bf16'`` and ``sort='locality'`` are not
-    ported (ROADMAP.md queue 1 step 3); with a feature metric they raise
-    the JAX package's ``ValueError``.
+    shard count. ``precision`` and ``sort`` pass to
+    :func:`kcenters_device_fused` for 'rmsd' ('bf16' and 'locality' run
+    on any device here, the CPU's plain kernel versions included); with
+    a feature metric they raise the JAX package's ``ValueError``.
 
     Returns a :class:`KCentersDeviceResult` of host arrays.
     """
@@ -643,18 +834,12 @@ def kcenters_device(X, metric='euclidean', n_clusters=None,
     if n_clusters is None and dist_cutoff is None:
         raise ValueError('Either n_clusters or dist_cutoff is required')
     if metric == 'rmsd':
-        for name, value, ok in (('precision', precision, (None, 'fp32')),
-                                ('sort', sort, (None,))):
-            if value not in ok:
-                raise NotImplementedError(
-                    '%s=%r is not ported to enspara_tpu_torch yet: '
-                    'ROADMAP.md queue 1 step 3' % (name, value))
         return kcenters_device_fused(
             X, n_clusters=n_clusters, dist_cutoff=dist_cutoff, k_max=k_max,
             init_distances=init_distances, init_assignments=init_assignments,
             n_init_centers=n_init_centers,
             init_center_indices=init_center_indices, device=device,
-            mesh=mesh)
+            mesh=mesh, precision=precision, sort=sort)
     if precision not in (None, 'fp32'):
         raise ValueError("precision='bf16' requires metric='rmsd' on "
                          "a TPU backend (the bf16 stream lives in the "
@@ -844,6 +1029,13 @@ def assign_device(X, centers, metric='euclidean', device=None, mesh=None):
         raise ValueError('device engine supports metrics %s, got %r'
                          % (sorted(METRICS), metric))
     prep = _prepared(X, metric, device, mesh)
+    if metric == 'rmsd' and (prep.precision != 'fp32'
+                             or prep.perm is not None):
+        raise ValueError('assignment takes float32 frames in the caller\'s '
+                         'order: pass the coordinates, not frames prepared '
+                         'with precision=%r, sort=%r'
+                         % (prep.precision, None if prep.perm is None
+                            else 'locality'))
     if metric != 'rmsd':
         C = _prepare_data(centers, metric)
         shards = _feature_shards(prep)

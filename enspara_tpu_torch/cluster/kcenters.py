@@ -8,8 +8,11 @@ loop of :func:`~enspara_tpu_torch.cluster.engine.kcenters_device`. A
 warm start from ``init_centers`` assigns the frames to them first
 through :func:`~enspara_tpu_torch.cluster.engine.assign_device`. With
 ``mesh=`` (a :class:`~enspara_tpu_torch.parallel.mesh.FrameMesh`) the
-frames are sharded over it and both run per shard. Callable metrics run
-the host loop with the reference's semantics.
+frames are sharded over it and both run per shard. ``precision='bf16'``
+streams RMSD frames in bfloat16 and ``sort='locality'`` clusters a
+locality-sorted layout (:func:`~enspara_tpu_torch.cluster.engine.
+prepare_rmsd_frames`). Callable metrics run the host loop with the
+reference's semantics.
 """
 
 import logging
@@ -47,11 +50,20 @@ class KCenters(util.MolecularClusterMixin):
         lie.
     mesh : FrameMesh, optional
         Shard the frames over this mesh instead (not with ``device``).
+    precision : 'fp32' (default) or 'bf16'
+        'bf16' streams the frames in bfloat16 through the k-centers
+        kernels (metric 'rmsd'): half the bytes, distances rounded by
+        about 4e-3 relative.
+    sort : None or 'locality'
+        'locality' clusters the frames in the order of their RMSD to
+        frame 0 (metric 'rmsd'), so that the tri-skip finds tiles to
+        skip in shuffled data: another, as valid, covering. Results come
+        back in the caller's order.
     """
 
     def __init__(self, metric, n_clusters=None, cluster_radius=None,
                  random_first_center=False, random_state=None, device=None,
-                 mesh=None):
+                 mesh=None, precision='fp32', sort=None):
         if n_clusters is None and cluster_radius is None:
             raise ImproperlyConfigured(
                 'Either n_clusters or cluster_radius is required for '
@@ -63,6 +75,8 @@ class KCenters(util.MolecularClusterMixin):
         self.random_state = random_state
         self.device = device
         self.mesh = mesh
+        self.precision = precision
+        self.sort = sort
 
     def fit(self, X, init_centers=None):
         conf = self.get_params()
@@ -77,7 +91,8 @@ class KCenters(util.MolecularClusterMixin):
                 'cluster_radius': self.cluster_radius,
                 'random_first_center': self.random_first_center,
                 'random_state': self.random_state, 'device': self.device,
-                'mesh': self.mesh}
+                'mesh': self.mesh, 'precision': self.precision,
+                'sort': self.sort}
 
     def set_params(self, **params):
         for k, v in params.items():
@@ -88,7 +103,8 @@ class KCenters(util.MolecularClusterMixin):
 @cite('kcenters')
 def kcenters(traj, distance_method, n_clusters=None, dist_cutoff=None,
              init_centers=None, random_first_center=False,
-             random_state=None, device=None, mesh=None):
+             random_state=None, device=None, mesh=None, precision='fp32',
+             sort=None):
     """Functional k-centers. ``traj`` is ``(n, n_atoms, 3)`` coordinates
     (numpy, a tensor, or anything with ``.xyz``) or, for the feature
     metrics, ``(n, d)`` feature vectors, clustered on
@@ -100,7 +116,8 @@ def kcenters(traj, distance_method, n_clusters=None, dist_cutoff=None,
     ``random_first_center=True`` seeds the search from a uniformly
     random frame (``random_state`` pins the draw: a ``RandomState``
     draws ``randint(n)``, anything else ``default_rng(random_state)
-    .integers(n)``).
+    .integers(n)``). ``precision`` and ``sort`` are :class:`KCenters`'s;
+    they need a built-in metric.
 
     Returns a :class:`~enspara_tpu_torch.cluster.util.ClusterResult`
     with host arrays: assignments and distances of every frame, the
@@ -128,7 +145,15 @@ def kcenters(traj, distance_method, n_clusters=None, dist_cutoff=None,
 
     if metric_name is not None:
         return _kcenters_fast(xyz, metric_name, n_clusters, dist_cutoff,
-                              init_centers, device, mesh)
+                              init_centers, device, mesh, precision, sort)
+    if sort is not None:
+        raise ImproperlyConfigured(
+            "sort='locality' requires a built-in metric on the device "
+            'path (callable metrics run on the host)')
+    if precision != 'fp32':
+        raise ImproperlyConfigured(
+            "precision='bf16' requires a built-in metric on the device "
+            "path (callable metrics run on the host)")
     return _kcenters_host(traj, util._get_distance_method(distance_method),
                           n_clusters, dist_cutoff, init_centers)
 
@@ -158,15 +183,24 @@ def _reject_ownerless(init_ctr_inds, n_init, init_assignments):
 
 
 def _kcenters_fast(X, metric, n_clusters, dist_cutoff, init_centers,
-                   device, mesh=None):
-    prep = engine.prepare_sharded(X, metric, mesh=mesh, device=device)
+                   device, mesh=None, precision='fp32', sort=None):
+    if metric == 'rmsd':
+        prep = engine.prepare_rmsd_frames(X, device=device, mesh=mesh,
+                                          precision=precision, sort=sort)
+    else:
+        prep = engine.prepare_sharded(X, metric, mesh=mesh, device=device)
     n_init = 0
     init_distances = init_assignments = init_ctr_inds = None
     init_center_data = []
     if init_centers is not None and len(init_centers):
         init_center_data = _init_center_data(init_centers)
+        # assignment takes float32 frames in the caller's order
+        plain = metric != 'rmsd' or (prep.precision == 'fp32'
+                                     and prep.perm is None)
         init_assignments, init_distances = engine.assign_device(
-            prep, np.stack(init_center_data), metric, mesh=mesh)
+            prep if plain else X, np.stack(init_center_data), metric,
+            device=None if plain or mesh is not None else prep.device,
+            mesh=mesh)
         n_init = len(init_center_data)
         # the min-distance frame of each init cluster is its center's
         # index; an init center that owns no frames has none
@@ -178,7 +212,7 @@ def _kcenters_fast(X, metric, n_clusters, dist_cutoff, init_centers,
         prep, metric, n_clusters=n_clusters, dist_cutoff=dist_cutoff,
         init_distances=init_distances, init_assignments=init_assignments,
         n_init_centers=n_init, init_center_indices=init_ctr_inds,
-        mesh=mesh)
+        mesh=mesh, precision=precision, sort=sort)
 
     ctr_inds = list(res.center_indices)
     centers = list(init_center_data) + \

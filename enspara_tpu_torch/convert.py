@@ -1,8 +1,8 @@
 """Carry kernel inputs and state between the JAX package and this one.
 
-The two share the frame layout (``(3*A_pad, n_pad)`` float32, rows
-``i*A_pad + a``, frame axis minor) and the state layout of the chunk
-kernel, so a JAX ``PreparedRMSDFrames`` and the arguments and results
+The two share the frame layout (``(3*A_pad, n_pad)`` float32 or
+bfloat16, rows ``i*A_pad + a``, frame axis minor) and the state layout
+of the chunk kernel, so a JAX ``PreparedRMSDFrames`` and the arguments and results
 of ``kcenters_chunk_skip_pallas`` cross as numpy arrays. The arguments
 of the all-pairs TPU kernel (``qcp_pallas._call_pallas``) cross to the
 inputs of ``ops.qcp_matrix``. An ``MSM`` manifest the JAX package saved
@@ -21,11 +21,21 @@ __all__ = ['prepared_from_numpy', 'sharded_from_numpy', 'state_from_numpy',
            'result_to_numpy', 'qcp_inputs_from_pallas', 'msm_from_manifest']
 
 
-def prepared_from_numpy(frames_r, g, n, n_atoms, tile=TILE, device=None):
+def _frames_tensor(frames, precision, device):
+    """float32 numpy frames as a tensor of the precision's dtype: a
+    JAX bf16 layout crosses as float32 (exact) and is stored back in
+    bfloat16 (exact too)."""
+    dtype = {'fp32': torch.float32, 'bf16': torch.bfloat16}[precision]
+    return torch.from_numpy(frames).to(device=device, dtype=dtype)
+
+
+def prepared_from_numpy(frames_r, g, n, n_atoms, tile=TILE, device=None,
+                        precision='fp32'):
     """The port's prepared frames from the numpy arrays of a JAX
-    ``PreparedRMSDFrames`` (fp32). Only the frame axis is re-padded, to
-    a multiple of ``tile``; rows, ``A_pad`` and the ``g = 1.0`` padding
-    stay as they are."""
+    ``PreparedRMSDFrames`` (``precision`` its own: 'fp32', or 'bf16' for
+    a bfloat16 layout). Only the frame axis is re-padded, to a multiple
+    of ``tile``; rows, ``A_pad`` and the ``g = 1.0`` padding stay as
+    they are."""
     device = resolve_device(frames_r, device)
     frames_r = np.asarray(frames_r, np.float32)
     g = np.asarray(g, np.float32).reshape(1, -1)
@@ -35,16 +45,18 @@ def prepared_from_numpy(frames_r, g, n, n_atoms, tile=TILE, device=None):
     frames[:, :n] = frames_r[:, :n]
     g_out = np.ones((1, n_pad), np.float32)
     g_out[:, :n] = g[:, :n]
-    return PreparedRMSDFrames(torch.from_numpy(frames).to(device),
+    return PreparedRMSDFrames(_frames_tensor(frames, precision, device),
                               torch.from_numpy(g_out).to(device),
-                              int(n), int(n_atoms), int(tile))
+                              int(n), int(n_atoms), int(tile), precision)
 
 
-def sharded_from_numpy(frames_r, g, n, n_atoms, tile, mesh):
+def sharded_from_numpy(frames_r, g, n, n_atoms, tile, mesh,
+                       precision='fp32'):
     """The port's sharded frames from the numpy arrays of a JAX
     ``PreparedRMSDFrames`` laid out for a mesh of ``mesh.size`` devices
-    (fp32): the frame axis is cut into the mesh's contiguous blocks as
-    it is, and this process's blocks go to their devices."""
+    (``precision`` its own): the frame axis is cut into the mesh's
+    contiguous blocks as it is, and this process's blocks go to their
+    devices."""
     frames_r = np.asarray(frames_r, np.float32)
     g = np.asarray(g, np.float32).reshape(1, -1)
     n_local = frames_r.shape[1] // mesh.size
@@ -52,11 +64,13 @@ def sharded_from_numpy(frames_r, g, n, n_atoms, tile, mesh):
     for s, dev in enumerate(mesh.devices):
         lo = (mesh.first_shard + s) * n_local
         shards.append(PreparedRMSDFrames(
-            torch.from_numpy(frames_r[:, lo:lo + n_local].copy()).to(dev),
+            _frames_tensor(frames_r[:, lo:lo + n_local].copy(), precision,
+                           dev),
             torch.from_numpy(g[:, lo:lo + n_local].copy()).to(dev),
-            int(min(max(n - lo, 0), n_local)), int(n_atoms), int(tile)))
+            int(min(max(n - lo, 0), n_local)), int(n_atoms), int(tile),
+            precision))
     return ShardedRMSDFrames(tuple(shards), int(n), int(n_atoms), int(tile),
-                             mesh.size, mesh.first_shard)
+                             mesh.size, mesh.first_shard, precision)
 
 
 def state_from_numpy(dist, assig, tmax, rows, gidx0, max0, i_offset,

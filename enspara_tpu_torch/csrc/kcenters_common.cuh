@@ -7,9 +7,16 @@
 // frame_rmsd, so they do the same arithmetic in the same order: the
 // kernels of qcp_update.cu and the per-iteration kernel of
 // kcenters_step.cu agree bit for bit when no tile is skipped.
+//
+// Frames are float or __nv_bfloat16 (the bf16 frame stream of the TPU
+// kernels: half the bytes cross device memory). A bf16 coordinate is
+// upconverted with __bfloat162float where it is loaded; S, G, the
+// Newton epilogue and the distance state stay fp32, so the two types
+// run the same arithmetic on the same (rounded) values.
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <math.h>
@@ -47,24 +54,38 @@ __device__ T block_reduce(T v, T identity, Op op, T* scratch) {
   return v;
 }
 
+// A frame coordinate as fp32: a read-only load through the texture
+// path, bf16 upconverted (exactly) at load.
+__device__ __forceinline__ float load_coord(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float load_coord(const __nv_bfloat16* p) {
+  return __bfloat162float(__ldg(p));
+}
+__device__ __forceinline__ float to_float(float v) { return v; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
 // RMSD of frame f to the center column s_col (3 * a_pad floats, row
 // i*a_pad + a, in shared memory); gsum = G(frame) + G(center). The nine
 // S sums run over the atoms in order, each step one fused multiply-add,
-// so every kernel that calls this rounds the same way.
-__device__ __forceinline__ float frame_rmsd(const float* __restrict__ frames,
+// so every kernel that calls this rounds the same way. T is float or
+// __nv_bfloat16.
+template <typename T>
+__device__ __forceinline__ float frame_rmsd(const T* __restrict__ frames,
                                             long long f, long long n_pad,
                                             int a_pad, const float* s_col,
                                             float gsum, float n_atoms) {
   float S[9];
 #pragma unroll
   for (int k = 0; k < 9; ++k) S[k] = 0.0f;
-  const float* px = frames + f;
-  const float* py = px + (long long)a_pad * n_pad;
-  const float* pz = py + (long long)a_pad * n_pad;
+  const T* px = frames + f;
+  const T* py = px + (long long)a_pad * n_pad;
+  const T* pz = py + (long long)a_pad * n_pad;
 #pragma unroll 4
   for (int a = 0; a < a_pad; ++a) {
     const long long off = (long long)a * n_pad;
-    const float x = __ldg(px + off), y = __ldg(py + off), z = __ldg(pz + off);
+    const float x = load_coord(px + off), y = load_coord(py + off),
+                z = load_coord(pz + off);
     const float cx = s_col[a], cy = s_col[a_pad + a], cz = s_col[2 * a_pad + a];
     S[0] = __fmaf_rn(x, cx, S[0]); S[1] = __fmaf_rn(x, cy, S[1]);
     S[2] = __fmaf_rn(x, cz, S[2]); S[3] = __fmaf_rn(y, cx, S[3]);

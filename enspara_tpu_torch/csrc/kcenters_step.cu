@@ -11,22 +11,28 @@
 //     sequential grid and hand double-buffered frame DMA become one
 //     block per tile, and its in-kernel argmax the last block's)
 //
-// Layout (the JAX package's, unchanged): frames (3*a_pad, n_pad) fp32,
-// row i*a_pad + a holds coordinate i of atom a, the frame axis is the
-// minor one. g, dist: (n_pad,) fp32; assig: (n_pad,) int32; tmax:
+// Layout (the JAX package's, unchanged): frames (3*a_pad, n_pad) fp32
+// or bf16, row i*a_pad + a holds coordinate i of atom a, the frame axis
+// is the minor one. g, dist: (n_pad,) fp32; assig: (n_pad,) int32; tmax:
 // (n_tiles,) fp32, the max of dist over each tile of `tile` frames.
 // Padding frames carry g = 1 and dist = -inf, so the strict-< update
 // never touches them and they never win the argmax.
 //
 // What bounds it on an H100: each iteration streams the whole frame
-// array once. At 1M frames x 64 atoms that is 768 MB, about 0.23 ms at
-// 3.35 TB/s, against about 0.7 GFLOP of fp32 FMA (9 multiply-adds per
-// atom row plus a ~300-flop Newton epilogue per frame), about 0.01 ms
-// at 67 TFLOP/s. So the kernel is bound by device-memory bandwidth.
-// What the design does about it:
+// array once. At 1M frames x 64 atoms that is 768 MB in fp32, about
+// 0.23 ms at 3.35 TB/s (384 MB in bf16, about 0.12 ms), against about
+// 0.7 GFLOP of fp32 FMA (9 multiply-adds per atom row plus a ~300-flop
+// Newton epilogue per frame), about 0.01 ms at 67 TFLOP/s. So the
+// kernel is bound by device-memory bandwidth. What the design does
+// about it:
 //   * one thread per frame and one block per tile: every row load is
-//     a coalesced 4-byte-per-lane read, and the 9 S sums stay in
-//     registers; nothing but the distance state is written back;
+//     a coalesced read (4 bytes a lane in fp32, 2 in bf16, upconverted
+//     at load), and the 9 S sums stay in registers; nothing but the
+//     distance state is written back;
+//   * the bf16 frame stream (the TPU kernels' bf16 mode) halves the
+//     frame bytes; every kernel here is a template on the frame type,
+//     with a float and a bf16 entry point, and all arithmetic stays
+//     fp32, so skip and no-skip stay bit-identical in either type;
 //   * the center column sits in shared memory (3*a_pad floats), copied
 //     once per block from a contiguous buffer that the previous
 //     iteration's last block filled, so no block does a strided gather;
@@ -36,14 +42,15 @@
 //     inequality no frame of such a tile can move; its tmax entry stays
 //     exact because its distances do not change;
 //   * the iteration boundary (global first-max argmax, column copy,
-//     G = sum(col^2), stop test) runs in the last block to finish,
+//     G = sum(col^2) in the ingest's order, stop test) runs in the last
+//     block to finish,
 //     found with a __threadfence + atomic ticket, so an iteration is one
 //     launch and the host syncs once per chunk, not once per center.
 // kc_iter_skip streams one shard the same way, with the same skip rule
 // and the same last-block argmax; the per-frame arithmetic and the
 // argmax are kcenters_common.cuh's, shared with qcp_update.cu. Making
-// it faster (a persistent kernel, a CUDA graph over a chunk, a bf16
-// frame stream) is later work.
+// it faster (a persistent kernel, a CUDA graph over a chunk, two frames
+// a thread in bf16) is later work.
 //
 // The QCP epilogue (qcp_rmsd.cuh) divides exactly; build without
 // --use_fast_math.
@@ -71,26 +78,39 @@ struct KcState {
 };
 
 // Iteration boundary, run by one whole block: stop test for the center
-// (gidx, md) as ordinal i; if it is placed, copy its column, its G and
-// the iteration's skippable-tile count. ctr and skipcnt come in filled
-// with -1, which is what a stopped slot keeps.
-__device__ void place_center(const float* __restrict__ frames, long long n_pad,
+// (gidx, md) as ordinal i; if it is placed, copy its column (upconverted
+// to fp32), its G = sum(col^2) of that column and the iteration's
+// skippable-tile count. ctr and skipcnt come in filled with -1, which is
+// what a stopped slot keeps.
+//
+// G adds the squares atom by atom, x y z, each product and sum rounded
+// on its own: the order in which the ingest sums a frame's G
+// (cluster/engine.py :: _ingest). So the center's G here is its prepared
+// G bit for bit, the number the sharded loop reads, and the two loops
+// measure every frame against the same gsum.
+template <typename T>
+__device__ void place_center(const T* __restrict__ frames, long long n_pad,
                              int rows, const float* tmax, int n_tiles,
                              float* col, KcState* st, int* ctr, int* skipcnt,
                              int ik, int gidx, float md, int i,
-                             float* fscratch, int* iscratch) {
+                             int* iscratch) {
   const bool stop = (md <= st->cutoff) || (i >= st->n_total);
   if (stop) {
     if (threadIdx.x == 0) st->stopped = 1;
     return;
   }
+  for (int r = threadIdx.x; r < rows; r += blockDim.x)
+    col[r] = to_float(frames[(long long)r * n_pad + gidx]);
+  __syncthreads();
   float gsq = 0.0f;
-  for (int r = threadIdx.x; r < rows; r += blockDim.x) {
-    const float v = frames[(long long)r * n_pad + gidx];
-    col[r] = v;
-    gsq += v * v;
+  if (threadIdx.x == 0) {
+    const int a_pad = rows / 3;
+    for (int a = 0; a < a_pad; ++a)
+      for (int j = 0; j < 3; ++j) {
+        const float v = col[j * a_pad + a];
+        gsq = __fadd_rn(gsq, __fmul_rn(v, v));
+      }
   }
-  gsq = block_reduce(gsq, 0.0f, SumOp(), fscratch);
   // the same rule the blocks apply, counted over every tile
   const bool finite = isfinite(md);
   int cnt = 0;
@@ -106,11 +126,11 @@ __device__ void place_center(const float* __restrict__ frames, long long n_pad,
 
 // Chunk start: clear the stop flag and place the chunk's first center,
 // the (gidx, md) the caller or the previous chunk left in the state.
-__global__ void kc_begin_kernel(const float* __restrict__ frames, long long n_pad,
+template <typename T>
+__global__ void kc_begin_kernel(const T* __restrict__ frames, long long n_pad,
                                 int rows, const float* tmax, int n_tiles,
                                 float* col, KcState* st, int* ctr,
                                 int* skipcnt) {
-  __shared__ float fscratch[kMaxWarps];
   __shared__ int iscratch[kMaxWarps];
   const int gidx = st->gidx;
   const float md = st->md;
@@ -121,13 +141,14 @@ __global__ void kc_begin_kernel(const float* __restrict__ frames, long long n_pa
     st->ticket = 0u;
   }
   place_center(frames, n_pad, rows, tmax, n_tiles, col, st, ctr, skipcnt, 0,
-               gidx, md, i, fscratch, iscratch);
+               gidx, md, i, iscratch);
 }
 
 // One k-centers iteration over all tiles against the placed center.
 // The last block to finish picks the next center and places it as
 // iteration ik + 1 of the chunk.
-__global__ void kc_iter_kernel(const float* __restrict__ frames,
+template <typename T>
+__global__ void kc_iter_kernel(const T* __restrict__ frames,
                                const float* __restrict__ g, float* dist,
                                int* assig, float* tmax, float* col,
                                KcState* st,
@@ -175,7 +196,7 @@ __global__ void kc_iter_kernel(const float* __restrict__ frames,
   }
   if (ik + 1 < n_iters)
     place_center(frames, n_pad, rows, tmax, n_tiles, col, st, ctr,
-                 skipcnt, ik + 1, gidx, m, cid + 1, fscratch, iscratch);
+                 skipcnt, ik + 1, gidx, m, cid + 1, iscratch);
 }
 
 // One k-centers iteration of one shard against a center chosen across
@@ -188,8 +209,9 @@ __global__ void kc_iter_kernel(const float* __restrict__ frames,
 // updated distances and the count of tiles skipped. counters is
 // int32[2], {ticket, skipped}, zero between launches. With *stop != 0
 // nothing is read or written but lmax = -inf, largmax = 0, skipcnt = 0.
+template <typename T>
 __global__ void kc_iter_skip_kernel(
-    const float* __restrict__ frames, const float* __restrict__ g,
+    const T* __restrict__ frames, const float* __restrict__ g,
     float* dist, int* assig, float* tmax, const float* __restrict__ col,
     const float* g_center, const int* center_id, const float* md_p,
     const int* stop, float* lmax, int* largmax, int* skipcnt, int* counters,
@@ -243,31 +265,27 @@ __global__ void kc_iter_skip_kernel(
   }
 }
 
-}  // namespace
-
-extern "C" {
-
 // Run n_iters k-centers iterations: one begin launch, then one launch
 // per iteration, all on `stream`. Allocates nothing and does not
 // synchronise. Returns the first cudaError_t of the launches (0 = ok).
-int kc_chunk(const float* frames, const float* g, float* dist, int* assig,
-             float* tmax, float* col, int* state, int* ctr, int* skipcnt,
-             long long n_pad, int a_pad, int tile, int n_iters, float n_atoms,
-             int skip, void* stream) {
+template <typename T>
+int chunk(const T* frames, const float* g, float* dist, int* assig,
+          float* tmax, float* col, int* state, int* ctr, int* skipcnt,
+          long long n_pad, int a_pad, int tile, int n_iters, float n_atoms,
+          int skip, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   KcState* st = reinterpret_cast<KcState*>(state);
   const int rows = 3 * a_pad;
   const int n_tiles = static_cast<int>(n_pad / tile);
   const size_t smem = static_cast<size_t>(rows) * sizeof(float);
-  kc_begin_kernel<<<1, tile, 0, s>>>(frames, n_pad, rows, tmax, n_tiles, col,
-                                     st, ctr, skipcnt);
+  kc_begin_kernel<T><<<1, tile, 0, s>>>(frames, n_pad, rows, tmax, n_tiles,
+                                        col, st, ctr, skipcnt);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   for (int ik = 0; ik < n_iters; ++ik) {
-    kc_iter_kernel<<<n_tiles, tile, smem, s>>>(frames, g, dist, assig, tmax,
-                                               col, st, ctr, skipcnt, ik,
-                                               n_iters, n_pad, a_pad, n_tiles,
-                                               n_atoms, skip);
+    kc_iter_kernel<T><<<n_tiles, tile, smem, s>>>(
+        frames, g, dist, assig, tmax, col, st, ctr, skipcnt, ik, n_iters,
+        n_pad, a_pad, n_tiles, n_atoms, skip);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
@@ -277,19 +295,65 @@ int kc_chunk(const float* frames, const float* g, float* dist, int* assig,
 // One sharded-loop iteration of one shard (kc_iter_skip_kernel): one
 // launch on `stream`, one block of `tile` threads per tile. Allocates
 // nothing, does not synchronise; returns the launch's cudaError_t.
+template <typename T>
+int iter_skip(const T* frames, const float* g, float* dist, int* assig,
+              float* tmax, const float* col, const float* g_center,
+              const int* center_id, const float* md, const int* stop,
+              float* lmax, int* largmax, int* skipcnt, int* counters,
+              long long n_pad, int a_pad, int tile, float n_atoms,
+              void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int n_tiles = static_cast<int>(n_pad / tile);
+  const size_t smem = static_cast<size_t>(3 * a_pad) * sizeof(float);
+  kc_iter_skip_kernel<T><<<n_tiles, tile, smem, s>>>(
+      frames, g, dist, assig, tmax, col, g_center, center_id, md, stop, lmax,
+      largmax, skipcnt, counters, n_pad, a_pad, n_tiles, n_atoms);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" {
+
+// The entry points: kc_chunk and kc_iter_skip read fp32 frames, the
+// _bf16 twins bf16 frames; every other argument is the same.
+int kc_chunk(const float* frames, const float* g, float* dist, int* assig,
+             float* tmax, float* col, int* state, int* ctr, int* skipcnt,
+             long long n_pad, int a_pad, int tile, int n_iters, float n_atoms,
+             int skip, void* stream) {
+  return chunk(frames, g, dist, assig, tmax, col, state, ctr, skipcnt, n_pad,
+               a_pad, tile, n_iters, n_atoms, skip, stream);
+}
+
+int kc_chunk_bf16(const __nv_bfloat16* frames, const float* g, float* dist,
+                  int* assig, float* tmax, float* col, int* state, int* ctr,
+                  int* skipcnt, long long n_pad, int a_pad, int tile,
+                  int n_iters, float n_atoms, int skip, void* stream) {
+  return chunk(frames, g, dist, assig, tmax, col, state, ctr, skipcnt, n_pad,
+               a_pad, tile, n_iters, n_atoms, skip, stream);
+}
+
 int kc_iter_skip(const float* frames, const float* g, float* dist, int* assig,
                  float* tmax, const float* col, const float* g_center,
                  const int* center_id, const float* md, const int* stop,
                  float* lmax, int* largmax, int* skipcnt, int* counters,
                  long long n_pad, int a_pad, int tile, float n_atoms,
                  void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int n_tiles = static_cast<int>(n_pad / tile);
-  const size_t smem = static_cast<size_t>(3 * a_pad) * sizeof(float);
-  kc_iter_skip_kernel<<<n_tiles, tile, smem, s>>>(
-      frames, g, dist, assig, tmax, col, g_center, center_id, md, stop, lmax,
-      largmax, skipcnt, counters, n_pad, a_pad, n_tiles, n_atoms);
-  return static_cast<int>(cudaGetLastError());
+  return iter_skip(frames, g, dist, assig, tmax, col, g_center, center_id,
+                   md, stop, lmax, largmax, skipcnt, counters, n_pad, a_pad,
+                   tile, n_atoms, stream);
+}
+
+int kc_iter_skip_bf16(const __nv_bfloat16* frames, const float* g,
+                      float* dist, int* assig, float* tmax, const float* col,
+                      const float* g_center, const int* center_id,
+                      const float* md, const int* stop, float* lmax,
+                      int* largmax, int* skipcnt, int* counters,
+                      long long n_pad, int a_pad, int tile, float n_atoms,
+                      void* stream) {
+  return iter_skip(frames, g, dist, assig, tmax, col, g_center, center_id,
+                   md, stop, lmax, largmax, skipcnt, counters, n_pad, a_pad,
+                   tile, n_atoms, stream);
 }
 
 const char* kc_error_string(int err) {

@@ -24,6 +24,13 @@ and :func:`kcenters_chunk_plain`, the plain PyTorch version with the
 same semantics and no skipping, on CPU tensors. Both update the state
 in place.
 
+Frames are float32 or bfloat16 (the TPU kernels' bf16 frame stream: the
+frames cross device memory at half width). bf16 frames launch the bf16
+entry points of the same source, which upconvert each coordinate at
+load; the plain versions upconvert the frames first. Everything else
+(G, the center column, the distance state, the arithmetic) is float32
+in both.
+
 :func:`kcenters_iteration_skip` is one iteration of one shard of the
 sharded loop (counterpart of ``kcenters_iteration_skip_pallas``): the
 center was chosen across the shards and arrives as device tensors (its
@@ -46,7 +53,7 @@ from . import _build
 from .qcp import _einsum_fp32, rmsd_from_S_components_unrolled
 
 __all__ = ['KCentersState', 'make_state', 'start_state', 'tile_summaries',
-           'skip_t_pad', 'kcenters_chunk', 'kcenters_chunk_plain',
+           'skip_t_pad', 'center_g', 'kcenters_chunk', 'kcenters_chunk_plain',
            'kcenters_iteration_skip', 'kcenters_iteration_skip_plain']
 
 # slots of the int32[8] scalar block, the KcState struct of the CUDA source
@@ -115,12 +122,16 @@ def start_state(dist, assig, rows, tile, n_start, n_total, dist_cutoff):
                       dist_cutoff)
 
 
+FRAME_DTYPES = (torch.float32, torch.bfloat16)
+
+
 def check_layout(frames, tile):
     """Raise ``ValueError`` unless ``frames`` is the kernels' (3*A_pad,
-    n_pad) float32 layout and ``tile`` a block size that divides it."""
-    if frames.dtype != torch.float32 or frames.ndim != 2:
-        raise ValueError('frames_r must be 2-D float32, got %s %s'
-                         % (frames.dtype, tuple(frames.shape)))
+    n_pad) float32 or bfloat16 layout and ``tile`` a block size that
+    divides it."""
+    if frames.dtype not in FRAME_DTYPES or frames.ndim != 2:
+        raise ValueError('frames_r must be 2-D float32 or bfloat16, got '
+                         '%s %s' % (frames.dtype, tuple(frames.shape)))
     rows, n_pad = frames.shape
     if rows % 24 or rows > _MAX_ROWS:
         raise ValueError('frames_r needs 3*A_pad rows with A_pad a '
@@ -156,6 +167,15 @@ def check_device(device, what):
                          % (what, device))
 
 
+def center_g(col):
+    """G = sum(col^2) of a (3*A_pad,) center column, added atom by atom,
+    x y z, in float32 with each product and sum rounded on its own: the
+    order of the CUDA kernel and of the ingest's G, so a center's G is
+    its prepared G bit for bit."""
+    v = col.view(3, -1).t().reshape(-1).cpu().numpy()
+    return float(np.add.accumulate(v * v)[-1])
+
+
 def _check(prep, state, n_iters):
     frames, tile = prep.frames_r, int(prep.tile)
     check_layout(frames, tile)
@@ -164,7 +184,7 @@ def _check(prep, state, n_iters):
                          % (n_iters,))
     rows, n_pad = frames.shape
     t_pad = skip_t_pad(n_pad // tile)
-    check_args(((frames, torch.float32, (rows, n_pad)),
+    check_args(((frames, frames.dtype, (rows, n_pad)),
                 (prep.g, torch.float32, (1, n_pad)),
                 (state.dist, torch.float32, (1, n_pad)),
                 (state.assig, torch.int32, (1, n_pad)),
@@ -190,6 +210,7 @@ def kcenters_chunk_plain(prep, state, n_iters):
     skipcnt = torch.full_like(ctr, -1)
     dist, assig = state.dist[0], state.assig[0]
     tmax = state.tmax[0, :n_tiles]
+    frames = frames.float()
     frames3 = frames.view(3, a_pad, n_pad)
     gc, stopped = float(f[_GC]), 0
     for ik in range(n_iters):
@@ -197,7 +218,7 @@ def kcenters_chunk_plain(prep, state, n_iters):
             stopped = 1
             break
         col = state.col.copy_(frames[:, gidx])
-        gc = float((col * col).sum())
+        gc = center_g(col)
         ctr[ik] = gidx
         skipcnt[ik] = int((tmax <= 0.5 * md).sum()) if math.isfinite(md) \
             else 0
@@ -222,16 +243,27 @@ def kcenters_chunk_plain(prep, state, n_iters):
 def _kernel():
     lib = _build.load_library('kcenters_step')
     p = ctypes.c_void_p
-    lib.kc_chunk.argtypes = [p] * 9 + [ctypes.c_longlong, ctypes.c_int,
-                                       ctypes.c_int, ctypes.c_int,
-                                       ctypes.c_float, ctypes.c_int, p]
-    lib.kc_chunk.restype = ctypes.c_int
-    lib.kc_iter_skip.argtypes = [p] * 14 + [ctypes.c_longlong, ctypes.c_int,
-                                            ctypes.c_int, ctypes.c_float, p]
-    lib.kc_iter_skip.restype = ctypes.c_int
+    for name in ('kc_chunk', 'kc_chunk_bf16'):
+        fn = getattr(lib, name)
+        fn.argtypes = [p] * 9 + [ctypes.c_longlong, ctypes.c_int,
+                                 ctypes.c_int, ctypes.c_int, ctypes.c_float,
+                                 ctypes.c_int, p]
+        fn.restype = ctypes.c_int
+    for name in ('kc_iter_skip', 'kc_iter_skip_bf16'):
+        fn = getattr(lib, name)
+        fn.argtypes = [p] * 14 + [ctypes.c_longlong, ctypes.c_int,
+                                  ctypes.c_int, ctypes.c_float, p]
+        fn.restype = ctypes.c_int
     lib.kc_error_string.argtypes = [ctypes.c_int]
     lib.kc_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def entry_point(lib, name, frames):
+    """The C entry point ``name`` of ``lib`` for ``frames``' dtype:
+    ``name`` for float32, ``name + '_bf16'`` for bfloat16."""
+    return getattr(lib, name + ('_bf16' if frames.dtype == torch.bfloat16
+                                else ''))
 
 
 def kcenters_chunk(prep, state, n_iters, skip=True):
@@ -239,12 +271,13 @@ def kcenters_chunk(prep, state, n_iters, skip=True):
     ``state``, updating the state in place.
 
     ``prep`` is a :class:`~enspara_tpu_torch.cluster.engine.
-    PreparedRMSDFrames` (frames (3*A_pad, n_pad) float32, g (1, n_pad),
-    tile); ``state`` a :class:`KCentersState` on the same device. On
-    CUDA tensors this launches ``csrc/kcenters_step.cu`` (one launch to
-    place the first center, then one per iteration) and raises if the
-    build or a launch fails; ``skip=False`` computes every tile. On CPU
-    tensors it runs :func:`kcenters_chunk_plain`.
+    PreparedRMSDFrames` (frames (3*A_pad, n_pad) float32 or bfloat16, g
+    (1, n_pad), tile); ``state`` a :class:`KCentersState` on the same
+    device. On CUDA tensors this launches ``csrc/kcenters_step.cu`` (one
+    launch to place the first center, then one per iteration; its bf16
+    entry point for bfloat16 frames) and raises if the build or a launch
+    fails; ``skip=False`` computes every tile. On CPU tensors it runs
+    :func:`kcenters_chunk_plain`.
 
     Returns ``(ctr, skipcnt)``: (n_iters,) int32 center indices and
     skipped-tile counts, -1 for slots past the stop.
@@ -264,7 +297,7 @@ def kcenters_chunk(prep, state, n_iters, skip=True):
 
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.kc_chunk(
+        err = entry_point(lib, 'kc_chunk', prep.frames_r)(
             ptr(prep.frames_r), ptr(prep.g), ptr(state.dist),
             ptr(state.assig), ptr(state.tmax), ptr(state.col),
             ptr(state.scal), ptr(ctr), ptr(skipcnt), n_pad, rows // 3,
@@ -274,11 +307,15 @@ def kcenters_chunk(prep, state, n_iters, skip=True):
         raise RuntimeError('kcenters_step launch failed: %s (cudaError %d)'
                            % (lib.kc_error_string(err).decode(), err))
     kcenters_chunk.n_launches += 1 + n_iters
+    if prep.frames_r.dtype == torch.bfloat16:
+        kcenters_chunk.n_bf16_launches += 1 + n_iters
     return ctr, skipcnt
 
 
-# CUDA kernel launches made by kcenters_chunk (the plain version adds none)
+# CUDA kernel launches made by kcenters_chunk, and those of them on bf16
+# frames (the plain version adds none)
 kcenters_chunk.n_launches = 0
+kcenters_chunk.n_bf16_launches = 0
 
 
 # ---------------------------------------------------------------------
@@ -334,7 +371,7 @@ def kcenters_iteration_skip_plain(frames_r, g, dist, assig, tmax, col,
     tm = tmax[0, :n_tiles]
     if torch.isfinite(md):
         skipcnt.fill_(int((tm <= 0.5 * md).sum()))
-    S = _einsum_fp32('ian,ja->ijn', frames_r.view(3, a_pad, n_pad),
+    S = _einsum_fp32('ian,ja->ijn', frames_r.float().view(3, a_pad, n_pad),
                      col.view(3, a_pad))
     d_new = rmsd_from_S_components_unrolled(
         tuple(S[p, q] for p in range(3) for q in range(3)),
@@ -367,15 +404,17 @@ def kcenters_iteration_skip(frames_r, g, dist, assig, tmax, col, g_center,
     """One k-centers iteration of one shard against a center chosen
     across the shards, skipping the tiles whose max is ``<= md/2``.
 
-    ``frames_r`` (3*A_pad, n_local) and ``g``, ``dist``, ``assig`` (1,
-    n_local) are the shard's; ``tmax`` (1, t_pad) its per-tile max carry
-    (-inf past the last tile, see :func:`tile_summaries`); ``col``
+    ``frames_r`` (3*A_pad, n_local), float32 or bfloat16, and ``g``,
+    ``dist``, ``assig`` (1, n_local) float32/int32 are the shard's;
+    ``tmax`` (1, t_pad) its per-tile max carry (-inf past the last
+    tile, see :func:`tile_summaries`); ``col``
     (3*A_pad, 1) the center's column; ``g_center``, ``md`` (1, 1)
     float32 and ``center_id`` (1, 1) int32 device tensors; ``stop``, an
     optional (1, 1) int32 device flag: nonzero leaves the state as it
     is. On CUDA tensors this launches ``kc_iter_skip`` of
-    ``csrc/kcenters_step.cu`` and raises if the launch fails; on CPU
-    tensors it runs :func:`kcenters_iteration_skip_plain`.
+    ``csrc/kcenters_step.cu`` (``kc_iter_skip_bf16`` for bfloat16
+    frames) and raises if the launch fails; on CPU tensors it runs
+    :func:`kcenters_iteration_skip_plain`.
 
     Returns ``(dist, assig, tmax, lmax, largmax, skipcnt)``: the first
     three updated in place, then this shard's max and first argmax of
@@ -402,7 +441,7 @@ def kcenters_iteration_skip(frames_r, g, dist, assig, tmax, col, g_center,
 
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.kc_iter_skip(
+        err = entry_point(lib, 'kc_iter_skip', frames_r)(
             ptr(frames_r), ptr(g), ptr(dist), ptr(assig), ptr(tmax),
             ptr(col), ptr(g_center), ptr(center_id), ptr(md),
             ptr(_stop_flag(stop, device)), ptr(lmax), ptr(largmax),
@@ -412,9 +451,12 @@ def kcenters_iteration_skip(frames_r, g, dist, assig, tmax, col, g_center,
         raise RuntimeError('kc_iter_skip launch failed: %s (cudaError %d)'
                            % (lib.kc_error_string(err).decode(), err))
     kcenters_iteration_skip.n_launches += 1
+    if frames_r.dtype == torch.bfloat16:
+        kcenters_iteration_skip.n_bf16_launches += 1
     return dist, assig, tmax, lmax, largmax, skipcnt
 
 
-# CUDA kernel launches made by kcenters_iteration_skip (the plain version
-# adds none)
+# CUDA kernel launches made by kcenters_iteration_skip, and those of them
+# on bf16 frames (the plain version adds none)
 kcenters_iteration_skip.n_launches = 0
+kcenters_iteration_skip.n_bf16_launches = 0

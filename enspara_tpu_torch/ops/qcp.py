@@ -12,6 +12,7 @@ same operation order as the JAX module. The k-centers kernel
 (``csrc/kcenters_step.cu``) inlines the same epilogue.
 """
 
+import numpy as np
 import torch
 
 from ..citation import cite
@@ -20,7 +21,7 @@ from ..util.device import full_fp32_matmul
 __all__ = [
     'center_coordinates', 'qcp_rmsd_matrix', 'qcp_rmsd_vector',
     'rmsd', 'prepare_structures', 'rmsd_from_S_components_unrolled',
-    'NEWTON_ITERS',
+    'kabsch_rmsd_np', 'NEWTON_ITERS',
 ]
 
 NEWTON_ITERS = 12
@@ -176,3 +177,18 @@ def rmsd(target_xyz, reference_xyz, precentered=False):
     if reference_xyz.ndim == 2:
         return qcp_rmsd_vector(target_xyz, reference_xyz, g_t, g_r)
     return qcp_rmsd_matrix(target_xyz, reference_xyz, g_t, g_r)
+
+
+def kabsch_rmsd_np(A, B):
+    """The float64 host oracle: the minimum RMSD of two ``(N, 3)``
+    structures by Kabsch's SVD (with the reflection fix), for holding
+    the QCP functions and kernels to it."""
+    A = np.asarray(A, np.float64)
+    B = np.asarray(B, np.float64)
+    A = A - A.mean(0)
+    B = B - B.mean(0)
+    U, s, Vt = np.linalg.svd(A.T @ B)
+    s = s.copy()
+    s[-1] *= np.sign(np.linalg.det(U @ Vt))
+    msd = (np.sum(A * A) + np.sum(B * B) - 2.0 * np.sum(s)) / len(A)
+    return float(np.sqrt(max(msd, 0.0)))

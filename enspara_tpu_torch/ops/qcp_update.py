@@ -12,7 +12,9 @@ argmax pass. It serves the sharded k-centers loop with
 tensors and runs :func:`kcenters_iteration_plain`, the plain PyTorch
 version, on CPU tensors. The center's G, its ordinal and the optional
 stop flag are (1, 1) device tensors, so an iteration needs no host
-value.
+value. Frames are float32 or bfloat16 (the bf16 frame stream, as in
+:mod:`~enspara_tpu_torch.ops.kcenters_step`); the center and all
+arithmetic are float32.
 """
 
 import ctypes
@@ -23,7 +25,7 @@ import torch
 
 from . import _build
 from .kcenters_step import (_check_iteration, _stop_flag, check_device,
-                            device_scratch)
+                            device_scratch, entry_point)
 from .qcp import _einsum_fp32, rmsd_from_S_components_unrolled
 
 __all__ = ['TILE', 'kcenters_iteration', 'kcenters_iteration_plain']
@@ -53,8 +55,8 @@ def kcenters_iteration_plain(frames_r, g, dist, assig, cvec, g_center,
     largmax = torch.zeros((1, 1), dtype=torch.int32, device=dev)
     if stop is None or not int(stop.reshape(())):
         rows, n_pad = frames_r.shape
-        S = _einsum_fp32('ian,aj->ijn', frames_r.view(3, rows // 3, n_pad),
-                         cvec)
+        S = _einsum_fp32('ian,aj->ijn',
+                         frames_r.float().view(3, rows // 3, n_pad), cvec)
         d_new = rmsd_from_S_components_unrolled(
             tuple(S[p, q] for p in range(3) for q in range(3)),
             g[0] + g_center.reshape(()), float(n_atoms_real))
@@ -73,10 +75,12 @@ def kcenters_iteration_plain(frames_r, g, dist, assig, cvec, g_center,
 def _kernel():
     lib = _build.load_library('qcp_update')
     p = ctypes.c_void_p
-    lib.qu_iteration.argtypes = [p] * 12 + [ctypes.c_longlong, ctypes.c_int,
-                                            ctypes.c_int, ctypes.c_float,
-                                            ctypes.c_int, p]
-    lib.qu_iteration.restype = ctypes.c_int
+    for name in ('qu_iteration', 'qu_iteration_bf16'):
+        fn = getattr(lib, name)
+        fn.argtypes = [p] * 12 + [ctypes.c_longlong, ctypes.c_int,
+                                  ctypes.c_int, ctypes.c_float, ctypes.c_int,
+                                  p]
+        fn.restype = ctypes.c_int
     lib.qu_error_string.argtypes = [ctypes.c_int]
     lib.qu_error_string.restype = ctypes.c_char_p
     return lib
@@ -87,14 +91,15 @@ def kcenters_iteration(frames_r, g, dist, assig, cvec, g_center, center_id,
                        stop=None):
     """One fused k-centers iteration.
 
-    ``frames_r`` (3*A_pad, n) is the frame layout (n a multiple of
-    ``tile``, A_pad of 8, padding zero); ``g``, ``dist``, ``assig`` (1,
-    n) the state (padding frames at -inf); ``cvec`` (A_pad, 3) the
+    ``frames_r`` (3*A_pad, n) is the frame layout, float32 or bfloat16
+    (n a multiple of ``tile``, A_pad of 8, padding zero); ``g``,
+    ``dist``, ``assig`` (1, n) the state (padding frames at -inf); ``cvec`` (A_pad, 3) the
     center's coordinates; ``g_center`` (1, 1) float32 its G and
     ``center_id`` (1, 1) int32 the id newly claimed frames take;
     ``stop``, an optional (1, 1) int32 device flag: nonzero leaves the
     state as it is. On CUDA tensors this launches ``csrc/qcp_update.cu``
-    and raises if the launch fails; on CPU tensors it runs
+    (``qu_iteration_bf16`` for bfloat16 frames) and raises if the launch
+    fails; on CPU tensors it runs
     :func:`kcenters_iteration_plain`.
 
     Returns ``(dist, assig)``, updated in place, plus with
@@ -121,7 +126,7 @@ def kcenters_iteration(frames_r, g, dist, assig, cvec, g_center, center_id,
 
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.qu_iteration(
+        err = entry_point(lib, 'qu_iteration', frames_r)(
             ptr(frames_r), ptr(g), ptr(dist), ptr(assig), ptr(cvec),
             ptr(g_center), ptr(center_id), ptr(_stop_flag(stop, device)),
             ptr(tmax), ptr(lmax), ptr(largmax), ptr(device_scratch(device)),
@@ -131,11 +136,14 @@ def kcenters_iteration(frames_r, g, dist, assig, cvec, g_center, center_id,
         raise RuntimeError('qcp_update launch failed: %s (cudaError %d)'
                            % (lib.qu_error_string(err).decode(), err))
     kcenters_iteration.n_launches += 1
+    if frames_r.dtype == torch.bfloat16:
+        kcenters_iteration.n_bf16_launches += 1
     if with_argmax:
         return dist, assig, lmax, largmax
     return dist, assig
 
 
-# CUDA kernel launches made by kcenters_iteration (the plain version adds
-# none)
+# CUDA kernel launches made by kcenters_iteration, and those of them on
+# bf16 frames (the plain version adds none)
 kcenters_iteration.n_launches = 0
+kcenters_iteration.n_bf16_launches = 0

@@ -31,7 +31,7 @@ FRAME_AXIS = 'frames'
 __all__ = ['FRAME_AXIS', 'FrameMesh', 'frame_mesh', 'n_devices',
            'pad_to_multiple', 'shard_frames', 'replicated', 'host_fetch',
            'initialize_distributed', 'install_abort_excepthook',
-           'single_shard_device']
+           'single_shard_device', 'mesh_platform']
 
 
 def _world_group():
@@ -234,6 +234,12 @@ def single_shard_device(mesh, device, what):
     if device is not None:
         raise ValueError('pass device= or mesh=, not both')
     return mesh.devices[0]
+
+
+def mesh_platform(mesh):
+    """The platform of the mesh's devices: 'gpu' for CUDA shards, 'cpu'
+    for CPU ones (the JAX package's names)."""
+    return 'gpu' if mesh.lead.type == 'cuda' else mesh.lead.type
 
 
 def pad_to_multiple(n, m):

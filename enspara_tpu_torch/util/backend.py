@@ -15,7 +15,9 @@ import torch
 
 from .device import require_cuda
 
-__all__ = ['select_device', 'check_random_state']
+__all__ = ['select_device', 'select_platform', 'check_random_state']
+
+_PLATFORM_ENV = 'ENSPARA_TPU_PLATFORM'
 
 
 def select_device(platform=None):
@@ -25,14 +27,33 @@ def select_device(platform=None):
     a card); 'cpu' -> the CPU, where every kernel takes its plain
     version. Anything else raises ``ValueError``."""
     if platform is None:
-        platform = os.environ.get('ENSPARA_TPU_PLATFORM', '')
-    platform = platform.strip().lower()
+        platform = os.environ.get(_PLATFORM_ENV, '')
+    platform = _checked(platform)
     if platform in ('', 'cuda', 'gpu'):
         return require_cuda()
-    if platform == 'cpu':
-        return torch.device('cpu')
-    raise ValueError("ENSPARA_TPU_PLATFORM must be 'cpu', 'cuda' or 'gpu' "
-                     'for enspara_tpu_torch, got %r' % (platform,))
+    return torch.device('cpu')
+
+
+def _checked(platform):
+    platform = platform.strip().lower()
+    if platform not in ('', 'cpu', 'cuda', 'gpu'):
+        raise ValueError("ENSPARA_TPU_PLATFORM must be 'cpu', 'cuda' or "
+                         "'gpu' for enspara_tpu_torch, got %r" % (platform,))
+    return platform
+
+
+def select_platform(platform=None):
+    """Pin the platform of this process (the JAX package's name): with a
+    ``platform`` ('cpu', 'cuda' or 'gpu'), set ``$ENSPARA_TPU_PLATFORM``
+    to it, so that :func:`select_device` and every host input with no
+    ``device=`` go there; with None, check the variable as it stands.
+    Anything else raises ``ValueError``, as :func:`select_device` does.
+    Returns the platform, '' when none is pinned."""
+    if platform is None:
+        return _checked(os.environ.get(_PLATFORM_ENV, ''))
+    platform = _checked(platform)
+    os.environ[_PLATFORM_ENV] = platform
+    return platform
 
 
 def check_random_state(seed):

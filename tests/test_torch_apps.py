@@ -21,10 +21,11 @@ import torch
 from enspara_tpu import ra
 from enspara_tpu.apps import cluster as jax_cluster
 from enspara_tpu.apps import reassign as jax_reassign
-from enspara_tpu.io import Topology, Trajectory, write_pdb, write_xtc
+from enspara_tpu.io import Topology, Trajectory, load, write_pdb, write_xtc
 
 from enspara_tpu_torch.apps import cluster, reassign
 from enspara_tpu_torch.exception import ImproperlyConfigured
+from enspara_tpu_torch.ops.qcp import kabsch_rmsd_np
 
 from test_torch_port import assert_rmsd_close, basin_data
 
@@ -158,21 +159,52 @@ def test_reassign_cli_matches_jax(tmp_path, cpu_env, lengths):
 
 
 @pytest.mark.parametrize('flag,step', [
-    (['--precision', 'bf16'], 'step 3'),
-    (['--locality-sort'], 'step 3'),
+    (['--precision', 'bf16'], None),
+    (['--locality-sort'], None),
     (['--checkpoint', 'ckpt'], 'only implemented for kmedoids'),
 ], ids=['bf16', 'locality_sort', 'checkpoint'])
 def test_cluster_cli_unported_options_raise(tmp_path, cpu_env, flag, step):
-    """bf16 and the locality sort are step 3; a --checkpoint that holds
-    a manifest warm-starts only kmedoids, as in the JAX package."""
+    """--precision bf16 and --locality-sort run (kcenters by rmsd) and
+    their outputs read back as a clustering of the fixture: each center
+    its own frame's cluster, each distance the RMSD of the frame to its
+    center's structure (within the frames' bf16 rounding for bf16). A
+    --checkpoint that holds a manifest warm-starts only kmedoids, as in
+    the JAX package."""
     pdb, trjs, _ = write_fixture(tmp_path)
-    argv = _cluster_argv(pdb, trjs, _outputs(tmp_path, 'x'), 'kcenters', 1)
-    if flag[0] == '--checkpoint':
+    out = _outputs(tmp_path, 'x')
+    argv = _cluster_argv(pdb, trjs, out, 'kcenters', 1)
+    if step is not None:
         flag = ['--checkpoint', str(tmp_path / 'ckpt')]
         (tmp_path / 'ckpt').mkdir()
         (tmp_path / 'ckpt' / 'manifest.json').write_text('{}')
-    with pytest.raises(ImproperlyConfigured, match=step):
-        cluster.process_command_line(argv + flag)
+        with pytest.raises(ImproperlyConfigured, match=step):
+            cluster.process_command_line(argv + flag)
+        return
+    assert cluster.main(argv + flag) == 0
+    assig, lengths = _load(out['--assignments'])
+    dist = _load(out['--distances'])[0]
+    assert lengths == [N_FRAMES] * N_TRJ and set(assig) == set(range(7))
+    ctr = [t * N_FRAMES + i for t, i in np.load(out['--center-indices'])]
+    np.testing.assert_array_equal(assig[ctr], np.arange(7))
+    assert (dist[ctr] < 1e-2).all() and np.isfinite(dist).all()
+    with open(out['--center-features'], 'rb') as f:
+        C = np.concatenate([c.xyz for c in pickle.load(f)])[:, ::2]
+    # the frames as the app read them (XTC precision, the CA atoms)
+    Y = np.concatenate([load(t, top=pdb).xyz[:, ::2] for t in trjs])
+    np.testing.assert_array_equal(C, Y[ctr])
+    Yc, Cc = (Z - Z.mean(1, keepdims=True) for Z in (Y, C))
+    ref = np.array([kabsch_rmsd_np(y, Cc[j]) for y, j in zip(Yc, assig)])
+    # the fp32 msd bar of assert_rmsd_close, as a bar on the RMSD
+    gsum = 2 * float((Yc.astype(np.float64) ** 2).sum((1, 2)).max())
+    slack = np.sqrt(1e-5 * ref ** 2
+                    + 16 * np.finfo(np.float32).eps * gsum / N_RES)
+    if flag[0] == '--precision':
+        def rounding(Z):
+            d = torch.from_numpy(Z).bfloat16().float().numpy() - Z
+            return np.sqrt((d.astype(np.float64) ** 2).sum((1, 2)) / N_RES)
+        slack = slack + rounding(Yc) + rounding(Cc)[assig]
+        assert np.abs(dist - ref).max() > 1e-5, 'bf16 must round'
+    assert (np.abs(dist - ref) <= slack).all()
 
 
 def test_cluster_cli_features_and_multihost_raise(tmp_path, cpu_env,

@@ -313,9 +313,13 @@ def test_feature_errors_match_jax():
         assert str(port.value) == str(ref.value)
     with pytest.raises(ValueError, match='supports metrics'):
         engine.kcenters_device(X, 'cosine', n_clusters=3)
-    with pytest.raises(NotImplementedError, match='step 3'):
-        engine.kcenters_device(coords, 'rmsd', n_clusters=3,
-                               precision='bf16')
+    # 'rmsd' takes both and passes them on to kcenters_device_fused
+    R = np.random.default_rng(2).normal(size=(50, 4, 3)).astype(np.float32)
+    res = engine.kcenters_device(R, 'rmsd', n_clusters=3, precision='bf16',
+                                 sort='locality')
+    assert res.n_found == 3
+    np.testing.assert_array_equal(res.assignments[res.center_indices],
+                                  np.arange(3))
     prep_r = engine.prepare_rmsd_frames(coords + np.arange(50)[:, None, None])
     prep_f = engine.prepare_sharded(X, 'euclidean')
     with pytest.raises(ValueError, match='prepared for'):
