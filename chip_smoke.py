@@ -128,7 +128,23 @@ drives these paths:
      host array ingested streamed and in one copy, in both precisions,
      bit for bit the same; (e) the cluster CLI on 10 of phase 5's XTC
      files with --precision bf16 and with --locality-sort, the outputs
-     read back and checked.
+     read back and checked;
+15.  the explicit-dye half of smFRET, with none of the six kernels, on a
+     synthetic dye library written to a temporary directory (two dyes of
+     60 atoms x 500 conformations with 500-state detailed-balance counts,
+     seeded; the builtin R0 tables): (a) `enspara smfret-dyes
+     calc_lifetimes` on phase 13's 2,000 centers at one residue pair with
+     --dye_treatment Monte-carlo-device --n_samples 1000 --dye_lagtime
+     0.002 (the clash test and one lockstep loop of every center's photons
+     on the card), then static and isotropic, by stage; (J, QD, Td) equal
+     to an inline float64 trapezoid of the tables, the kept dye states of
+     the first 8 centers equal to the CPU's, the lockstep MC at one center
+     with 100,000 photons within 5 standard errors of the exact absorbing
+     chain (a float64 fixed point on the card), with the dyes as placed
+     and with the acceptor 7.5 nm away, where no outcome dominates; (b) the host per-photon
+     walk on 4 centers at 50 samples, within 10 points of the device run
+     in each outcome fraction; (c) run_burst, 1,000 bursts over phase 13's
+     2,000-state MSM (seed 17), every FRET efficiency in [0, 1].
 
 Every time printed was taken on the card's machine (device stages timed
 with CUDA events or to a synchronize, host stages on its host), warm
@@ -175,6 +191,8 @@ from enspara_tpu_torch.geometry import (dihedrals, helix, pockets, rmsf,
                                         rotamer)
 from enspara_tpu_torch.geometry import sasa as sasa_mod
 from enspara_tpu_torch.geometry import dyes_from_expt_dist as dyes
+from enspara_tpu_torch.geometry import dye_lifetimes as dl
+from enspara_tpu_torch.geometry import explicit_r0_calc as r0c
 from enspara_tpu_torch.geometry.sasa import shrake_rupley
 from enspara_tpu_torch.info_theory import exposons, libinfo, mutual_info
 from enspara_tpu_torch.io import Topology, Trajectory, write_pdb, write_xtc
@@ -3510,6 +3528,466 @@ def bf16_path(device, single, t_single, card):
     return launches, nums
 
 
+# phase 15, the explicit-dye route: the two synthetic dyes (library name,
+# file stem, seed), their conformations (= dye MSM states) and the atoms
+# of their chromophore; the centers of the host per-photon run, the
+# photons of each of its centers and of the device MC's exact checks; the
+# centers held against the CPU's clash test; bursts; dye lag time (ns); the
+# acceptor's shift (nm) of the second exact check
+DYES = (('SimFluor 488D C1R', 'SD488', 21), ('SimFluor 594A C1R', 'SD594',
+                                             22))
+DYE_FRAMES, DYE_RING = 500, 46
+DYE_SAMPLES, DYE_HOST_CENTERS, DYE_HOST_SAMPLES = 1000, 4, 50
+DYE_EXACT_PHOTONS, DYE_CPU_CENTERS = 100_000, 8
+DYE_BURSTS, DYE_LAG, DYE_FAR = 1000, 0.002, 7.5
+
+
+def _nerf(a, b, c, bond, angle, torsion):
+    """NeRF in float64 numpy: the atom bonded to ``c`` (F, 3) at ``bond`` nm,
+    angle b-c-d ``angle`` degrees and torsion a-b-c-d ``torsion`` (radians,
+    (F,))."""
+    bc = (c - b) / np.linalg.norm(c - b, axis=-1, keepdims=True)
+    n = np.cross(b - a, bc)
+    n /= np.linalg.norm(n, axis=-1, keepdims=True)
+    m = np.cross(n, bc)
+    t = np.deg2rad(angle)
+    return (c - bond * np.cos(t) * bc
+            + (bond * np.sin(t) * np.cos(torsion))[:, None] * m
+            + (bond * np.sin(t) * np.sin(torsion))[:, None] * n)
+
+
+def dye_conformations(topology_cls, n_frames, seed, n_ring=DYE_RING):
+    """A synthetic dye of ``topology_cls``: a Cys-like residue (N, CA, C, O,
+    CB; 0.005 nm of noise a frame), its SG, an 8-carbon linker of random
+    torsions and a planar chromophore of ``n_ring`` carbons (C9...) on a
+    hexagonal grid, turned by a random torsion about the last linker bond:
+    (topology, float32 (n_frames, 14 + n_ring, 3) in nm)."""
+    rng = np.random.default_rng(seed)
+    F = n_frames
+    N = np.zeros((F, 3))
+    CA = np.zeros((F, 3))
+    CA[:, 0] = 0.1458
+    C = np.zeros((F, 3))
+    t = np.deg2rad(111.2)
+    C[:, 0] = 0.1458 - 0.1525 * np.cos(t)
+    C[:, 1] = 0.1525 * np.sin(t)
+    O = _nerf(N, CA, C, 0.1231, 120.5, np.full(F, np.pi))
+    CB = _nerf(C, N, CA, 0.153, 110.5, np.full(F, np.deg2rad(-122.6)))
+    back = np.stack([N, CA, C, O, CB], 1)
+    back += rng.normal(0, 0.005, back.shape)
+    N, CA, C, O, CB = back.transpose(1, 0, 2)
+    chi1 = np.deg2rad(rng.choice([-60.0, 60.0, 180.0], F)
+                      + rng.normal(0, 10, F))
+    chain = [CA, CB, _nerf(N, CA, CB, 0.181, 114.0, chi1)]
+    for k in range(8):
+        chain.append(_nerf(chain[-3], chain[-2], chain[-1],
+                           0.181 if k == 0 else 0.153,
+                           100.0 if k == 0 else 111.0,
+                           rng.uniform(-np.pi, np.pi, F)))
+    # the chromophore's plane: along the last bond u, and v turned about u
+    u = chain[-1] - chain[-2]
+    u /= np.linalg.norm(u, axis=-1, keepdims=True)
+    w = np.cross(u, chain[-2] - chain[-3])
+    w /= np.linalg.norm(w, axis=-1, keepdims=True)
+    v = np.cross(w, u)
+    phi = rng.uniform(-np.pi, np.pi, F)[:, None]
+    v = np.cos(phi) * v + np.sin(phi) * w
+    cols = -(-n_ring // 4)
+    grid = [(0.14 + j * 0.121 + (i % 2) * 0.0605, (i - 1.5) * 0.105)
+            for i in range(4) for j in range(cols)][:n_ring]
+    ring = np.stack([chain[-1] + x * u + y * v for x, y in grid], 1)
+    xyz = np.concatenate([back[:, :4], np.stack(chain[1:], 1), ring], 1)
+    top = topology_cls()
+    res = top.add_residue('C1R', top.add_chain(), 1)
+    names = (['N', 'CA', 'C', 'O', 'CB', 'SG']
+             + ['C%d' % k for k in range(1, 9 + n_ring)])
+    for name in names:
+        top.add_atom(name, name[0], res)
+    return top, xyz.astype(np.float32)
+
+
+def dye_counts(n, seed):
+    """Integer transition counts (n, n) that satisfy detailed balance (a
+    symmetric matrix): 1-9 counts between every two states, 2,000-3,999 on
+    the diagonal. Every pair of states is joined, so the states a clash
+    test keeps stay one chain."""
+    rng = np.random.default_rng(seed)
+    c = np.triu(rng.integers(1, 10, (n, n)), 1)
+    return c + c.T + np.diag(rng.integers(2000, 4000, n))
+
+
+def explicit_dye_library(path, seed, n_frames=DYE_FRAMES, n_ring=DYE_RING):
+    """Write a synthetic explicit-dye library under ``path``: for each dye
+    of :data:`DYES` its conformations (``trajs/<stem>_cutoff10.dcd``, the
+    topology in ``structures/<stem>.pdb``) and its detailed-balance counts
+    (``<stem>_tcounts.npy``), the ``libraries.yml`` entries and the builtin
+    ``R0/`` tables under the dyes' names. Point $ENSPARA_TPU_DYE_DIR at
+    ``path`` to use it. Returns ``{stem: (name, dcd, pdb, counts)}``."""
+    import shutil
+    from enspara_tpu_torch import data as data_pkg
+    for sub in ('trajs', 'structures'):
+        os.makedirs(os.path.join(path, sub), exist_ok=True)
+    shutil.copytree(os.path.join(os.path.dirname(data_pkg.__file__),
+                                 'dyes_builtin', 'R0'),
+                    os.path.join(path, 'R0'), dirs_exist_ok=True)
+    out, yml = {}, []
+    for k, (name, stem, s) in enumerate(DYES):
+        top, xyz = dye_conformations(Topology, n_frames, seed + s, n_ring)
+        traj = Trajectory(xyz, top)
+        dcd = os.path.join(path, 'trajs', stem + '_cutoff10.dcd')
+        pdb = os.path.join(path, 'structures', stem + '.pdb')
+        port_io.write_dcd(dcd, traj)
+        write_pdb(pdb, traj[0])
+        counts = os.path.join(path, stem + '_tcounts.npy')
+        np.save(counts, dye_counts(n_frames, seed + s))
+        yml.append('%s:\n  author: synthetic (chip_smoke.py)\n  citation: '
+                   'none\n  filename: %s_cutoff10\n  licence: MIT\n  mu:\n'
+                   '  - C9\n  - C%d\n  negative: []\n  positive: []\n  r:\n'
+                   '  - C%d\n  CB:\n  - name CB\n'
+                   % (name, stem, 8 + n_ring, 9 + n_ring // 2))
+        out[stem] = (name, dcd, pdb, counts)
+    with open(os.path.join(path, 'libraries.yml'), 'w') as f:
+        f.write(''.join(yml))
+    return out
+
+
+def exact_outcomes(probs, d_tprobs, a_tprobs, d_eqs, a_eqs, device,
+                   tol=1e-12, check=256):
+    """The absorbing chain the lockstep MC samples, solved in float64 on
+    ``device``: from (d, a) the photon ends in outcome c with
+    ``probs[d, a, c]``, else moves to (d', a') by T_d x T_a. The
+    probabilities X_c of ending in c and the mean step count M are the
+    fixed points of X_c <- P_c + S o (T_d X_c T_a^T) and M <- 1 + S o (T_d M
+    T_a^T) (S = probs[..., 3]), iterated from 0 until no entry changes by
+    ``tol`` (relative to the entry where it exceeds 1: a mean of hundreds
+    of steps has rounding noise above 1e-12). Returns (fractions (3,) and
+    mean steps from pi_0 = eq_d x eq_a, iterations)."""
+    def t(x):
+        return torch.as_tensor(np.asarray(x, np.float64), device=device)
+    P, Td, Ta = t(probs), t(d_tprobs), t(a_tprobs)
+    S = P[..., 3]
+    B = torch.cat([P[..., :3].permute(2, 0, 1), torch.ones_like(S)[None]])
+    X = torch.zeros_like(B)
+    it = 0
+    while True:
+        for _ in range(check):
+            prev, X = X, B + S * (Td @ X @ Ta.T)
+            it += 1
+        delta = float(((X - prev).abs() / X.abs().clamp_min(1)).max())
+        if delta < tol:
+            break
+    w = (t(d_eqs)[:, None] * t(a_eqs)[None])
+    out = (X * w).sum(dim=(1, 2)).cpu().numpy()
+    return out[:3], float(out[3]), it
+
+
+def overlap64(r0_dir, donor, acceptor):
+    """(J, QD, Td) of a dye pair from the ``R0/`` tables by a float64 numpy
+    trapezoid, read with ``np.loadtxt`` and ``str.split``: the spectra
+    paired row by row, the emission and excitation in percent, the
+    extinction table without a header."""
+    (dfl, dnum), (afl, anum) = (n.split(' ')[:2] for n in (donor, acceptor))
+    d = np.loadtxt(os.path.join(r0_dir, dfl + dnum + '.csv'), delimiter=',',
+                   skiprows=1)
+    a = np.loadtxt(os.path.join(r0_dir, afl + anum + '.csv'), delimiter=',',
+                   skiprows=1)
+    with open(os.path.join(r0_dir, 'Dyes_extinction_QD.csv')) as f:
+        rows = [r.strip().split(',') for r in f if r.strip()]
+    qd = np.array([float(r[3]) for r in rows if r[:2] == [dfl, dnum]])
+    td = np.array([float(r[4]) for r in rows if r[:2] == [dfl, dnum]])
+    ext = [float(r[2]) for r in rows if r[:2] == [afl, anum]][0]
+    trapezoid = getattr(np, 'trapezoid', None) or np.trapz
+    wl, em = d[:, 0], d[:, 2] / 100
+    J = trapezoid(em * (ext * (a[:, 1] / 100)) * wl ** 4, x=wl) \
+        / trapezoid(em, x=wl)
+    return J, qd, td
+
+
+class _Stages:
+    """Wraps ``dye_lifetimes._calc_lifetimes_all`` to keep each call's
+    events, stage info and its start and end on the host clock."""
+
+    def __init__(self, fn):
+        self.fn, self.calls = fn, []
+
+    def __call__(self, *args, **kw):
+        t = time.perf_counter()
+        events, info = self.fn(*args, **kw)
+        torch.cuda.synchronize()
+        self.calls.append((events, dict(info, start=t,
+                                        end=time.perf_counter())))
+        return events, info
+
+
+def dye_cli(argv, stages):
+    """``enspara smfret-dyes`` through the dispatcher: (its seconds, the
+    events and stage info of its calc_lifetimes call or None)."""
+    n = len(stages.calls)
+    t = time.perf_counter()
+    main_app.main(['enspara', 'smfret-dyes'] + argv)
+    torch.cuda.synchronize()
+    t = (t, time.perf_counter())
+    return t, (stages.calls[n] if len(stages.calls) > n else None)
+
+
+def explicit_dye_path(device, card):
+    """Phase 15: the explicit-dye route through `enspara smfret-dyes` on
+    phase 13's centers with a synthetic dye library, with none of the six
+    kernels launched."""
+    reset_launches()
+    top = lys_topology(Topology, GLOB_RES)
+    xyz, _, groups = globule_frames(globule(GLOB_RES), SASA_FRAMES, seed=14)
+    traj = Trajectory(xyz, top)
+    n = len(traj)
+    saved = os.environ.get('ENSPARA_TPU_DYE_DIR')
+    stages = _Stages(dl._calc_lifetimes_all)
+    dl._calc_lifetimes_all = stages
+    try:
+        with tempfile.TemporaryDirectory() as d:
+            lib_dir = os.path.join(d, 'dyes')
+            t = time.perf_counter()
+            lib = explicit_dye_library(lib_dir, 20, n_frames=DYE_FRAMES)
+            t_lib = time.perf_counter() - t
+            os.environ['ENSPARA_TPU_DYE_DIR'] = lib_dir
+            pair = dye_sites(traj, np.concatenate(groups), lib, device)
+            explicit_dye_checks(d, lib, traj, pair, device, card, stages,
+                                t_lib)
+    finally:
+        dl._calc_lifetimes_all = stages.fn
+        if saved is None:
+            os.environ.pop('ENSPARA_TPU_DYE_DIR', None)
+        else:
+            os.environ['ENSPARA_TPU_DYE_DIR'] = saved
+    launched = (kcenters_chunk.n_launches,
+                qcp_matrix.qcp_rmsd_matrix_kernel.n_launches,
+                ell_spmm_kernel.n_launches, kcenters_iteration.n_launches,
+                kcenters_iteration_skip.n_launches)
+    check(not any(launched), 'phase 15 launched a kernel: %s' % (launched,))
+    print('[%s] phase 15 (explicit dyes) passed over %d centers; none of '
+          'the six kernels launched' % (card, n), flush=True)
+
+
+def dye_sites(traj, exclude, lib, device, n_sites=8, n_frames=16,
+              apart=2.5):
+    """The residue pair of phase 15: of the ``n_sites`` residues that
+    :func:`label_sites` ranks first, the one where the donor of ``lib``
+    keeps the most conformations on the first ``n_frames`` centers, and of
+    the others (those whose CA lies ``apart`` nm or more from the donor
+    site's on the first center, if any) the one where the acceptor keeps
+    the most. (The globule's residues are lattice points: a site that
+    faces out by its ideal CB can still bury the dye.)"""
+    sites = label_sites(traj, n_sites // 2, exclude).ravel()
+    meta = r0c.load_library()
+    kept = []
+    for name, dcd, pdb, _ in lib.values():
+        dye = port_io.load(dcd, top=pdb)
+        kept.append([sum(map(len, r0c._place_and_prune(
+            traj[:n_frames], dye, int(r), name, meta, n_procs=8,
+            device=device)[1])) for r in sites])
+    d = int(np.argmax(kept[0]))
+    ca = traj.xyz[0][traj.top.select('name CA')][sites - 1]
+    far = np.linalg.norm(ca - ca[d], axis=1) >= apart
+    others = [k for k in range(len(sites)) if k != d and (far[k]
+                                                          or not far.any())]
+    a = max(others, key=lambda k: kept[1][k])
+    return np.array([sites[d], sites[a]])
+
+
+def _outcome_fractions(events):
+    out = np.concatenate([np.asarray(e[1]) for e in events if len(e[1])])
+    return np.array([(out == c).mean() for c in
+                     ('radiative', 'non_radiative', 'energy_transfer')])
+
+
+def _check_events(path, n_centers, n_samples, what):
+    events = np.load(path, allow_pickle=True)
+    check(len(events) == n_centers, '%s: %d event pairs for %d centers'
+          % (what, len(events), n_centers))
+    live = 0
+    for lt, oc in events:
+        lt, oc = np.asarray(lt, float), np.asarray(oc)
+        check(len(lt) == len(oc) and len(lt) in (0, n_samples)
+              and np.isfinite(lt).all() and (lt >= 0).all(),
+              '%s: a center\'s lifetimes' % what)
+        check(set(oc.tolist()) <= {'radiative', 'non_radiative',
+                                   'energy_transfer'},
+              '%s: outcomes outside the three channels' % what)
+        live += len(lt) > 0
+    check(live > 0, '%s: no center took both dyes' % what)
+    return events
+
+
+def explicit_dye_checks(d, lib, traj, pair, device, card, stages, t_lib):
+    """Phase 15's runs and checks in the directory ``d`` (see
+    :func:`explicit_dye_path`)."""
+    n = len(traj)
+    (dname, ddcd, dpdb, dcnt), (aname, adcd, apdb, acnt) = lib.values()
+    names = [dname, aname]
+    lib_dir = os.environ['ENSPARA_TPU_DYE_DIR']
+
+    # (J, QD, Td) against the inline float64 trapezoid
+    got = r0c.get_dye_overlap(dname, aname)
+    ref = overlap64(os.path.join(lib_dir, 'R0'), dname, aname)
+    check(got[0] == ref[0] and all(np.array_equal(x, y) for x, y in
+                                   zip(got[1:], ref[1:])),
+          '(J, QD, Td) %s differ from the float64 trapezoid %s' % (got, ref))
+
+    port_io.write_dcd(os.path.join(d, 'centers.dcd'), traj)
+    write_pdb(os.path.join(d, 'prot.pdb'), traj[0])
+    np.savetxt(os.path.join(d, 'pair.txt'), pair[None], fmt='%d')
+    common = ['--donor_name', dname, '--donor_centers', ddcd, '--donor_top',
+              dpdb, '--donor_tcounts', dcnt, '--acceptor_name', aname,
+              '--acceptor_centers', adcd, '--acceptor_top', apdb,
+              '--acceptor_tcounts', acnt, '--dye_lagtime', str(DYE_LAG),
+              '--prot_top', os.path.join(d, 'prot.pdb'), '--resid_pairs',
+              os.path.join(d, 'pair.txt'), '--n_procs', '8', '--rng_seed',
+              '1']
+    ev_name = 'events-%d-%d.npy' % tuple(pair)
+
+    # (a) every center on the card, then the static and isotropic dyes
+    runs = {}
+    for treatment in ('Monte-carlo-device', 'static', 'isotropic'):
+        out = os.path.join(d, treatment)
+        (t0, t1), (events, info) = dye_cli(
+            ['calc_lifetimes'] + common + [
+                '--prot_centers', os.path.join(d, 'centers.dcd'),
+                '--dye_treatment', treatment, '--n_samples',
+                str(DYE_SAMPLES), '--output_dir', out], stages)
+        ev = _check_events(os.path.join(out, ev_name), n, DYE_SAMPLES,
+                           treatment)
+        runs[treatment] = (ev, info)
+        kept = [sum(map(len, k)) / (n * DYE_FRAMES) for k in info['kept']]
+        mc = ''
+        if treatment == 'Monte-carlo-device':
+            mc = (' (%d lockstep steps, %d photon-steps, %.4g photon-steps/s)'
+                  % (info['lockstep_steps'], info['photon_steps'],
+                     info['photon_steps'] / info['treatment']))
+        print('[%s] enspara smfret-dyes calc_lifetimes --dye_treatment %s, '
+              '%d centers x %d samples, residues %d-%d: %.4f s = load '
+              '%.4f s, placement %.4f s, clash test %.4f s (%.4g tests, '
+              '%.4g tests/s), dye MSMs %.4f s, %s %.4f s%s, write %.4f s; '
+              '%.1f%% / %.1f%% of the dye states kept'
+              % (card, treatment, n, DYE_SAMPLES, pair[0], pair[1], t1 - t0,
+                 info['start'] - t0, info['placement'], info['clash'],
+                 info['tests'], info['tests'] / info['clash'], info['msm'],
+                 treatment, info['treatment'], mc, t1 - info['end'],
+                 100 * kept[0], 100 * kept[1]), flush=True)
+    dev_events, dev_info = runs['Monte-carlo-device']
+    for other in ('static', 'isotropic'):
+        check([len(e[0]) > 0 for e in runs[other][0]]
+              == [len(e[0]) > 0 for e in dev_events],
+              '%s labels other centers than the device run' % other)
+
+    # the kept dye states of the first centers against the CPU's
+    lib_meta = r0c.load_library()
+    t = time.perf_counter()
+    for k, (name, dcd, pdb, _) in enumerate(lib.values()):
+        dye = port_io.load(dcd, top=pdb)
+        _, cpu_kept, _ = r0c._place_and_prune(
+            traj[:DYE_CPU_CENTERS], dye, int(pair[k]), name, lib_meta,
+            n_procs=8, device='cpu')
+        check(all(np.array_equal(a, b) for a, b in
+                  zip(cpu_kept, dev_info['kept'][k][:DYE_CPU_CENTERS])),
+              'the kept dye states of %s differ from the CPU run' % name)
+    t_cpu = time.perf_counter() - t
+
+    # the lockstep MC against the exact absorbing chain at one center: the
+    # dyes as the route gives them (energy transfer nearly always), then
+    # the acceptor moved DYE_FAR nm, where no outcome dominates
+    live = [i for i, e in enumerate(dev_events) if len(e[0])]
+    c = live[0]
+    msm = [dl.make_dye_msm(port_io.load(dcd, top=pdb), np.load(cnt),
+                           traj[c], int(pair[k]), name, lib_meta,
+                           device=device)
+           for k, (name, dcd, pdb, cnt) in enumerate(lib.values())]
+    centers = [port_io.load(dcd, top=pdb) for _, dcd, pdb, _ in lib.values()]
+    far = centers[1].copy()
+    far.xyz = far.xyz + np.float32([DYE_FAR, 0.0, 0.0])
+    params = r0c.get_dye_overlap(dname, aname)
+    N = DYE_EXACT_PHOTONS
+    exact = []
+    for acceptor, seed in ((centers[1], 3), (far, 4)):
+        (steps, out), t_mc = timed_s(lambda: dl.resolve_excitations_device(
+            dname, aname, msm[0][0], msm[1][0], msm[0][1], msm[1][1],
+            centers[0], acceptor, params, DYE_LAG, lib_meta, n_samples=N,
+            rng_seed=seed, device=device))
+        probs = dl._pair_rate_tables(dname, aname, centers[0], acceptor,
+                                     params, DYE_LAG, lib_meta)
+        (frac, mean, iters), t_exact = timed_s(lambda: exact_outcomes(
+            probs, msm[0][0], msm[1][0], msm[0][1], msm[1][1], device))
+        got = np.array([(out == ch).mean() for ch in
+                        ('radiative', 'non_radiative', 'energy_transfer')])
+        z = np.abs(got - frac) / np.sqrt(
+            np.maximum(frac * (1 - frac), 1e-300) / N)
+        z_steps = abs(steps.mean() - mean) / (steps.std() / np.sqrt(N))
+        check((z < 5).all() and z_steps < 5,
+              'the lockstep MC at center %d: fractions %s against exact %s '
+              '(%s standard errors), mean steps %.3f against %.3f (%.2f)'
+              % (c, got, frac, z, steps.mean(), mean, z_steps))
+        exact.append('%.4f s, fractions %s against the exact chain %s (%s '
+                     'standard errors), mean steps %.3f against %.3f (%.2f), '
+                     'the exact chain %d iterations %.4f s'
+                     % (t_mc, np.round(got, 4), np.round(frac, 4),
+                        np.round(z, 2), steps.mean(), mean, z_steps, iters,
+                        t_exact))
+    check((frac > 0.02).all(), 'the acceptor %g nm away: an outcome of the '
+          'exact chain dominates %s' % (DYE_FAR, frac))
+
+    # (b) the host per-photon walk on a few centers
+    host = live[:DYE_HOST_CENTERS]
+    port_io.write_dcd(os.path.join(d, 'few.dcd'), traj[host])
+    out = os.path.join(d, 'host')
+    (t0, t1), _ = dye_cli(['calc_lifetimes'] + common + [
+        '--prot_centers', os.path.join(d, 'few.dcd'), '--dye_treatment',
+        'Monte-carlo', '--n_samples', str(DYE_HOST_SAMPLES), '--output_dir',
+        out], stages)
+    host_ev = _check_events(os.path.join(out, ev_name), len(host),
+                            DYE_HOST_SAMPLES, 'Monte-carlo')
+    f_host = _outcome_fractions(host_ev)
+    f_dev = _outcome_fractions([dev_events[i] for i in host])
+    check(np.abs(f_host - f_dev).max() <= 0.10,
+          'host walk fractions %s against the device %s' % (f_host, f_dev))
+    t_host = t1 - t0
+
+    # (c) bursts over phase 13's 2,000-state MSM
+    C = sparse_metastable_counts(n, n_blocks=min(25, max(1, n // 8)),
+                                 seed=17)
+    rows = np.asarray(C.sum(1)).ravel()
+    np.save(os.path.join(d, 'prot_counts.npy'), C.toarray())
+    np.save(os.path.join(d, 'prot_eqs.npy'), rows / rows.sum())
+    rng = np.random.default_rng(18)
+    times = []
+    for _ in range(DYE_BURSTS):
+        k = int(rng.integers(*FRET_PHOTONS, endpoint=True))
+        times.append(rng.exponential(rng.uniform(*FRET_STEPS) / k / 1000, k))
+    np.save(os.path.join(d, 'photons.npy'), np.array(times, dtype=object),
+            allow_pickle=True)
+    out = os.path.join(d, 'bursts')
+    (t0, t1), _ = dye_cli([
+        'run_burst', '--eq_probs', os.path.join(d, 'prot_eqs.npy'),
+        '--t_counts', os.path.join(d, 'prot_counts.npy'), '--lifetimes_dir',
+        os.path.join(d, 'Monte-carlo-device'), '--donor_name', dname,
+        '--acceptor_name', aname, '--lagtime', '1', '--resid_pairs',
+        os.path.join(d, 'pair.txt'), '--photon_times',
+        os.path.join(d, 'photons.npy'), '--correction_factor', '1',
+        '--output_dir', out], stages)
+    fe = np.load(os.path.join(out, 'FEs', 'FE-%d-%d-1.npy' % tuple(pair)),
+                 allow_pickle=True).astype(float)
+    check(fe.shape == (DYE_BURSTS,) and ((fe >= 0) & (fe <= 1)).all(),
+          'run_burst: FE of shape %s outside [0, 1]' % (fe.shape,))
+    print('[%s] explicit dyes: synthetic library (2 dyes x %d conformations '
+          'x %d atoms) %.4f s; (J, QD, Td) equal the float64 trapezoid; '
+          'the kept dye states of %d centers equal the CPU run (%.4f s); '
+          'the lockstep MC at center %d, %d photons: %s; with the acceptor '
+          '%g nm away: %s; host walk on %d centers x %d samples %.4f s, '
+          'fractions %s against the device run %s; run_burst of %d bursts '
+          '%.4f s, mean E %.4f'
+          % (card, DYE_FRAMES, centers[0].n_atoms, t_lib, DYE_CPU_CENTERS,
+             t_cpu, c, N, exact[0], DYE_FAR, exact[1], len(host),
+             DYE_HOST_SAMPLES, t_host, np.round(f_host, 3),
+             np.round(f_dev, 3), DYE_BURSTS, t1 - t0, fe.mean()), flush=True)
+
+
 def main():
     card = card_line()
     print('card:', card, flush=True)
@@ -3683,6 +4161,10 @@ def main():
 
     # -- 14. bf16 frames, the locality sort, streamed ingest, CLI flags ----
     bf16_launches, bf16 = bf16_path(device, single, t_single, card)
+    torch.cuda.empty_cache()
+
+    # -- 15. the explicit-dye route of smFRET -------------------------------
+    explicit_dye_path(device, card)
     print('launches: north star kcenters_step %d; north star tri_skip=False '
           'kcenters_step_noskip %d; cluster -> reassign kcenters_step %d, '
           'qcp_matrix %d; scale-point eigensolve ell_spmm %d; implied '

@@ -3,25 +3,23 @@
 
     python -m enspara_tpu_torch.apps.main cluster --features f*.npy ...
 
-``cluster``, ``implied``, ``reassign``, ``cards``, ``entropy`` and
-``smfret-clouds`` (the point-cloud half of smFRET) run the port's apps.
-``smfret-dyes`` (the explicit-dye half) is not ported yet: it raises
-``ImproperlyConfigured`` naming ROADMAP.md queue 1 step 10.
+``cluster``, ``implied``, ``reassign``, ``cards``, ``entropy``,
+``smfret-dyes`` (the explicit-dye half of smFRET) and ``smfret-clouds``
+(the point-cloud half) run the port's apps.
 """
 
 import argparse
 import importlib
 import sys
 
-# subcommand -> the port's app module, or the ROADMAP.md queue 1 step
-# that ports it (the JAX package's module named beside it)
+# subcommand -> the port's app module
 _APP_MODULES = {
     'cluster': '.cluster',
     'implied': '.implied_timescales',
     'reassign': '.reassign',
     'cards': '.collect_cards',
     'entropy': '.shannon_entropy',
-    'smfret-dyes': ('smFRET_dye_MC', '10'),
+    'smfret-dyes': '.smFRET_dye_MC',
     'smfret-clouds': '.smFRET_point_clouds',
 }
 
@@ -48,12 +46,8 @@ def identify_app(argv):
     argv[:] = kept
 
     args = parser.parse_args(argv[1:])
-    target = _APP_MODULES[args.appname]
-    if isinstance(target, tuple):
-        from .cluster import _not_ported
-        raise _not_ported('The %s app (enspara_tpu/apps/%s.py)'
-                          % (args.appname, target[0]), target[1])
-    args.main = importlib.import_module(target, package=__package__).main
+    args.main = importlib.import_module(_APP_MODULES[args.appname],
+                                        package=__package__).main
     args.appargs.extend(deferred)
     return args
 

@@ -1,9 +1,9 @@
 """Geometry (counterpart of ``enspara_tpu/geometry``): the
 point-against-set distances of :mod:`.libdist`, dihedral angles, rotamer
 states, Shrake-Rupley SASA, RMSF, helix frames, LIGSITE pockets and, on
-first access, the smFRET point-cloud module :mod:`.dyes_from_expt_dist`.
-The explicit-dye modules (``explicit_r0_calc``, ``dye_lifetimes``) are
-ROADMAP.md queue 1 step 10."""
+first access, the smFRET modules: the point clouds of
+:mod:`.dyes_from_expt_dist` and the explicit dyes of
+:mod:`.explicit_r0_calc` and :mod:`.dye_lifetimes`."""
 
 from . import libdist  # noqa: F401
 from . import dihedrals  # noqa: F401
@@ -17,11 +17,11 @@ from .sasa import shrake_rupley  # noqa: F401
 from .rmsf import rmsf_calc  # noqa: F401
 from .pockets import get_pockets  # noqa: F401
 
-# the smFRET dye module pulls scipy.stats (>1 s of import time on slow
-# hosts) and only the smFRET app needs it: load it lazily (PEP 562);
+# the smFRET dye modules pull scipy.stats (>1 s of import time on slow
+# hosts) and only the smFRET apps need them: load them lazily (PEP 562);
 # `from enspara_tpu_torch.geometry import dyes_from_expt_dist` still works
-_LAZY_DYE_MODULES = ('dyes_from_expt_dist',)
-_NOT_PORTED = ('explicit_r0_calc', 'dye_lifetimes')
+_LAZY_DYE_MODULES = ('dyes_from_expt_dist', 'explicit_r0_calc',
+                     'dye_lifetimes')
 
 
 def __getattr__(name):
@@ -30,11 +30,6 @@ def __getattr__(name):
         mod = importlib.import_module('.' + name, __name__)
         globals()[name] = mod
         return mod
-    if name in _NOT_PORTED:
-        raise AttributeError(
-            'geometry.%s (enspara_tpu/geometry/%s.py) is not ported to '
-            'enspara_tpu_torch yet: ROADMAP.md queue 1 step 10'
-            % (name, name))
     raise AttributeError('module %r has no attribute %r'
                          % (__name__, name))
 

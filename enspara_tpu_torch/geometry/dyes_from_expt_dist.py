@@ -172,6 +172,8 @@ def rodrigues_rotation(v, k, theta, centers=None):
 
 # elements of the largest distance tensor of a chunk of frames
 _CHUNK_ELEMS = 1 << 27
+# points a batch of the exact re-test of the clash test's undecided points
+_RETEST_ROWS = 4096
 
 
 def _cdist(a, b):
@@ -328,16 +330,51 @@ def pairwise_distance_distribution(coords1, coords2, bin_width=0.1,
 def _untouched_frames(clouds, xyz, clearance, device):
     """Masks (F, n) of the points of ``clouds`` (F, n, 3) farther than
     ``clearance`` (A,) from every protein atom of their frame of ``xyz``
-    (F, A, 3) (strict ``>``), a chunk of frames a batch on ``device``."""
+    (F, A, 3) (strict ``>``), with scipy's ``cdist`` rounding, a batch of
+    frames at a time on ``device``.
+
+    Each (point, atom) pair is screened by one float64 product,
+    ``|x - p|^2 - clearance^2`` from the coordinates less the frame's
+    protein centroid; a point whose smallest screened value lies within
+    the product's rounding bound of 0 (rare) is tested again with
+    :func:`_cdist`."""
     F, n = clouds.shape[:2]
-    step = max(1, _CHUNK_ELEMS // max(n * xyz.shape[1], 1))
-    clear = torch.as_tensor(clearance, device=device)
-    out = []
-    for lo in range(0, F, step):
-        pts, prot = (torch.as_tensor(np.asarray(x[lo:lo + step], np.float64),
-                                     device=device) for x in (clouds, xyz))
-        out.append((_cdist(pts, prot) > clear).all(dim=-1).cpu().numpy())
-    return np.concatenate(out)
+    A = xyz.shape[1]
+    out = np.ones((F, n), dtype=bool)
+    if F == 0 or n == 0 or A == 0:
+        return out
+    clear = torch.as_tensor(np.asarray(clearance, np.float64), device=device)
+    thr2 = clear * clear
+    batch = max(1, _CHUNK_ELEMS // (n * A))
+    row_step = max(1, min(n, _CHUNK_ELEMS // A))
+    eps = float(np.finfo(np.float64).eps)
+    for lo in range(0, F, batch):
+        X, P = (torch.as_tensor(np.asarray(x[lo:lo + batch], np.float64),
+                                device=device) for x in (clouds, xyz))
+        B = P.shape[0]
+        o = P.mean(dim=1, keepdim=True)
+        Ps, Xs = P - o, X - o
+        Pa = torch.cat([-2 * Ps, torch.ones_like(Ps[..., :1]),
+                        (Ps * Ps).sum(-1, keepdim=True) - thr2[:, None]], -1)
+        Xa = torch.cat([Xs, (Xs * Xs).sum(-1, keepdim=True),
+                        torch.ones_like(Xs[..., :1])], -1)
+        reach = (torch.linalg.vector_norm(Xs, dim=-1).amax()
+                 + torch.linalg.vector_norm(Ps, dim=-1).amax())
+        # 256 eps of the largest term bounds the product's rounding and the
+        # shift's, hundreds of times over
+        margin = 256 * eps * (reach * reach + thr2.max())
+        clash = torch.empty((B, n), dtype=torch.bool, device=device)
+        for r0 in range(0, n, row_step):
+            m = torch.bmm(Xa[:, r0:r0 + row_step],
+                          Pa.transpose(1, 2)).amin(dim=-1)
+            clash[:, r0:r0 + row_step] = m < -margin
+            b, r = torch.nonzero(m.abs() <= margin, as_tuple=True)
+            for k in range(0, len(b), _RETEST_ROWS):
+                bb, rr = b[k:k + _RETEST_ROWS], r[k:k + _RETEST_ROWS] + r0
+                d = _cdist(X[bb, rr][:, None], P[bb])[:, 0]
+                clash[bb, rr] = ~(d > clear).all(dim=-1)
+        out[lo:lo + B] = (~clash).cpu().numpy()
+    return out
 
 
 def _padded(clouds, width):

@@ -344,21 +344,27 @@ def _eq_probs_detailed_balance(T, rel_tol=1e-10):
     row-stochasticity; any violation returns None so the caller falls
     back to the eigensolver. Builders that symmetrize counts
     (transpose, Prinz MLE) produce exact detailed balance, so their
-    chains always take this path.
+    chains always take this path. A dense T takes the same steps in numpy
+    (the same tree, the same values: the same pi): on a 500-state dye
+    chain its conversion to CSR alone costs about as much as the solve.
     """
-    S = scipy.sparse.csr_matrix(T, dtype=np.float64)
+    dense = not scipy.sparse.issparse(T)
+    S = (np.asarray(T, dtype=np.float64) if dense
+         else scipy.sparse.csr_matrix(T, dtype=np.float64))
     n = S.shape[0]
-    if n == 0 or S.shape[0] != S.shape[1]:
+    if S.ndim != 2 or n == 0 or S.shape[0] != S.shape[1]:
         return None
     rows = np.asarray(S.sum(axis=1)).ravel()
     if not np.all(np.isfinite(rows)) or np.abs(rows - 1.0).max() > 1e-8:
         return None
-    if S.nnz == 0 or (S.data < 0).any():
+    values = S if dense else S.data
+    if not values.any() or (values < 0).any():
         return None
 
     # spanning tree over edges present in BOTH directions
     support = (S != 0)
-    sym = support.multiply(support.T).tocsr()
+    sym = scipy.sparse.csr_matrix(support & support.T) if dense else \
+        support.multiply(support.T).tocsr()
     n_comp, _ = connected_components(sym, directed=False)
     if n_comp != 1:
         return None
@@ -385,11 +391,46 @@ def _eq_probs_detailed_balance(T, rel_tol=1e-10):
     pi /= pi.sum()
 
     # certify detailed balance on EVERY stored entry, not just the tree
-    F = S.multiply(pi[:, None]).tocoo()             # flux pi_i T_ij
-    asym = np.abs((F - F.T).tocoo().data)
-    bound = rel_tol * F.data.max()
+    if dense:
+        F = S * pi[:, None]                         # flux pi_i T_ij
+        asym = np.abs(F - F.T)
+        bound = rel_tol * F.max()
+    else:
+        F = S.multiply(pi[:, None]).tocoo()
+        asym = np.abs((F - F.T).tocoo().data)
+        bound = rel_tol * F.data.max()
     if asym.size and asym.max() > bound:
         return None
+    return pi
+
+
+def _eq_probs_with_empty_states(T):
+    """:func:`_eq_probs_detailed_balance` of a chain that may hold empty
+    states (a zero row and a zero column, as ``remove_bad_states`` leaves
+    them): pi of the other states, 0 at the empty ones, which is the top
+    left eigenvector of T. None where a zero row has a nonzero column, or
+    the other states fail the fast path."""
+    if scipy.sparse.issparse(T):
+        T = scipy.sparse.csr_matrix(T, dtype=np.float64)
+        mass = abs(T)
+    else:
+        T = np.asarray(T, dtype=np.float64)
+        mass = np.abs(T)
+    if T.ndim != 2 or T.shape[0] != T.shape[1]:
+        return None
+    empty = np.ravel(np.asarray(mass.sum(axis=1))) == 0
+    if not empty.any():
+        return _eq_probs_detailed_balance(T)
+    if empty.all() or np.ravel(np.asarray(mass.sum(axis=0)))[empty].any():
+        return None
+    live = np.flatnonzero(~empty)
+    # one live state: its row is its self-transition
+    sub = (np.ones(1) if len(live) == 1
+           else _eq_probs_detailed_balance(T[live][:, live]))
+    if sub is None:
+        return None
+    pi = np.zeros(T.shape[0])
+    pi[live] = sub
     return pi
 
 
@@ -400,9 +441,11 @@ def eq_probs(T, maxiter=100000, tol=1E-30):
     Reversible chains (builders.transpose / builders.mle output) skip
     the eigensolver entirely: detailed balance determines pi along a
     spanning tree in O(nnz), certified on every entry — the ARPACK
-    left-eigenvector solve only runs for non-reversible input.
+    left-eigenvector solve only runs for non-reversible input. States
+    with no counts in or out (a row and a column of zeros) take pi = 0
+    on that path, as the eigenvector has it.
     """
-    pi = _eq_probs_detailed_balance(T)
+    pi = _eq_probs_with_empty_states(T)
     if pi is not None:
         return pi
     val, vec = eigenspectrum(T, n_eigs=3, left=True, maxiter=maxiter,

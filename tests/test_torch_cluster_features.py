@@ -28,7 +28,7 @@ from enspara_tpu.util import checkpoint as jax_checkpoint
 from enspara_tpu_torch.apps import cluster, main as main_app
 from enspara_tpu_torch.apps import (collect_cards, implied_timescales,
                                     reassign, shannon_entropy,
-                                    smFRET_point_clouds)
+                                    smFRET_dye_MC, smFRET_point_clouds)
 from enspara_tpu_torch.cluster import kcenters
 from enspara_tpu_torch.cluster.save_states import save_states
 from enspara_tpu_torch.exception import ImproperlyConfigured
@@ -249,13 +249,10 @@ def test_dispatcher_routes_and_names_the_unported_apps():
                                                 implied_timescales),
                          ('reassign', reassign), ('cards', collect_cards),
                          ('entropy', shannon_entropy),
-                         ('smfret-clouds', smFRET_point_clouds)):
+                         ('smfret-clouds', smFRET_point_clouds),
+                         ('smfret-dyes', smFRET_dye_MC)):
         args = main_app.identify_app(['enspara', name, '--help'])
         assert args.main is module.main and args.appargs == ['--help']
-    with pytest.raises(ImproperlyConfigured,
-                       match='not ported to enspara_tpu_torch yet: '
-                             'ROADMAP.md queue 1 step 10'):
-        main_app.identify_app(['enspara', 'smfret-dyes'])
     with pytest.raises(SystemExit):
         main_app.identify_app(['enspara', 'not-an-app'])
     from enspara_tpu.apps import main as jax_main

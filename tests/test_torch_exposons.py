@@ -186,5 +186,8 @@ def test_ported_modules_export_the_reference_names():
                  'rmsf_calc', 'get_pockets', 'dyes_from_expt_dist'):
         assert hasattr(geometry, name), name
     for name in ('explicit_r0_calc', 'dye_lifetimes'):
-        with pytest.raises(AttributeError, match='queue 1 step 10'):
-            getattr(geometry, name)
+        mod = getattr(geometry, name)
+        assert mod is importlib.import_module(
+            'enspara_tpu_torch.geometry.' + name)
+        ref = importlib.import_module('enspara_tpu.geometry.' + name)
+        assert set(mod.__all__) == set(ref.__all__)
