@@ -144,13 +144,33 @@ drives these paths:
      and with the acceptor 7.5 nm away, where no outcome dominates; (b) the host per-photon
      walk on 4 centers at 50 samples, within 10 points of the device run
      in each outcome fraction; (c) run_burst, 1,000 bursts over phase 13's
-     2,000-state MSM (seed 17), every FRET efficiency in [0, 1].
+     2,000-state MSM (seed 17), every FRET efficiency in [0, 1];
+16.  the PAM sweeps over a 4-shard mesh of the card and the multi-process
+     cluster CLI, kernel 5 on every shard: (a) KHybrid at phase 5's scale
+     (its 100,000 subsampled frames in memory -> 1000, 5 sweeps,
+     random_state 0) over the mesh and on one device, by stage; (b)
+     kmedoids_sweeps_device over the mesh on all 1M of phase 5's frames,
+     2 sweeps from a kcenters(mesh=) seed, against one device from the
+     same seed, the cost below the seed's; each held as the same medoids
+     (then distances on the msd bar, assignments equal but for near
+     ties) or, where a swap's gain lay within the float32 rounding of
+     the cost sums, final costs within 1e-5; (c) the cluster CLI's
+     multi-process sequence in two processes of this script (one shard
+     each on cuda:0, joined over gloo through ENSPARA_TPU_COORDINATOR)
+     on 10 of phase 5's XTC files, --algorithm khybrid --cluster-number
+     1000 --subsample 1 --random-state 0: both processes bit for bit an
+     in-process FrameMesh((cuda:0,) * 2) run, rank 0 alone writing the
+     center indices and structures (the .h5 write left out), --subsample
+     2 refused, stage seconds a process.
 
 Every time printed was taken on the card's machine (device stages timed
 with CUDA events or to a synchronize, host stages on its host), warm
 where it says so, and stands beside the card's name and power limit. Any failed check raises
 and the exit code is not 0. Without a CUDA device it fails before
 printing a result.
+
+Run with ``--job-worker RANK DIR`` it is one process of phase 16c (the
+parent starts both).
 
 Standard output ends with a JSON line of the kernels (each with its
 launches on its path, its time, its plain version's, its bound at the
@@ -164,6 +184,7 @@ import json
 import os
 import pickle
 import subprocess
+import sys
 import tempfile
 import time
 import warnings
@@ -182,7 +203,8 @@ from enspara_tpu_torch.apps import implied_timescales as its_app
 from enspara_tpu_torch.apps import main as main_app
 from enspara_tpu_torch.apps import reassign as reassign_app
 from enspara_tpu_torch.cards import cards, cards_matrices, disorder
-from enspara_tpu_torch.cluster import engine, engine_kmedoids, kcenters
+from enspara_tpu_torch.cluster import (KHybrid, engine, engine_kmedoids,
+                                       kcenters)
 from enspara_tpu_torch.cluster import util as cluster_util
 from enspara_tpu_torch import ra
 from enspara_tpu_torch.convert import result_to_numpy
@@ -754,7 +776,8 @@ def reassign_path(device, card):
                 rargs, reassign_app.load_centers(rargs), device)
         t_reassign = time.perf_counter() - t
         launches = {'qcp_matrix': qcp_matrix.qcp_rmsd_matrix_kernel.n_launches,
-                    'kcenters_step': kcenters_chunk.n_launches}
+                    'kcenters_step': kcenters_chunk.n_launches,
+                    'pam_seconds': pam.seconds, 'pam_syncs': syncs}
         check(ell_spmm_kernel.n_launches == 0,
               'cluster -> reassign launched the ell_spmm kernel')
 
@@ -3988,6 +4011,332 @@ def explicit_dye_checks(d, lib, traj, pair, device, card, stages, t_lib):
              np.round(f_dev, 3), DYE_BURSTS, t1 - t0, fe.mean()), flush=True)
 
 
+# phase 16, the PAM sweeps over a frame mesh and the multi-process CLI: the
+# sweeps of 16b, the processes and phase 5's XTC files of 16c
+MESH_SWEEPS = 2
+JOB_PROCS, JOB_FILES = 2, 10
+JOB_WORKER_FLAG = '--job-worker'
+
+
+def pam_cost(d):
+    return float(np.mean(np.asarray(d, np.float64) ** 2))
+
+
+def compare_pam(got, ref, bar, what):
+    """Phase 16's check of a mesh run ``got`` against one device ``ref``,
+    each ``(medoids, distances, assignments)``: the same medoids, the
+    distances within the msd bar and the assignments equal but for near
+    ties; or, where the medoids differ, final costs within 1e-5
+    relative. Returns the verdict."""
+    (gm, gd, ga), (rm, rd, ra) = got, ref
+    gm, rm = np.asarray(gm), np.asarray(rm)
+    ga, ra = np.asarray(ga), np.asarray(ra)
+    gd, rd = np.asarray(gd, np.float64), np.asarray(rd, np.float64)
+    n_diff = int((gm != rm).sum())
+    cg, cr = pam_cost(gd), pam_cost(rd)
+    flips = ga != ra
+    if n_diff == 0:
+        check(rmsd_close(gd, rd, bar), '%s: distances outside the msd bar'
+              % what)
+        check(bool((np.abs(gd[flips] ** 2 - rd[flips] ** 2)
+                    <= bar(np.maximum(gd[flips], rd[flips]))).all()),
+              '%s: assignments differ beyond near ties' % what)
+    else:
+        check(abs(cg - cr) <= 1e-5 * cr, '%s: %d medoids differ and the '
+              'cost %r is not within 1e-5 of %r' % (what, n_diff, cg, cr))
+    return ('%d of %d medoids differ, %d assignments (near ties), cost '
+            '%.9g vs %.9g one device' % (n_diff, len(gm), int(flips.sum()),
+                                         cg, cr))
+
+
+def khybrid_mesh_check(X, mesh, device, card, phase5):
+    """Phase 16a: KHybrid at phase 5's scale over the mesh and on one
+    device, by stage. Returns kernel 5's launches over the mesh."""
+    bar = bar_from(2.02 * float(np.einsum(
+        'nai,nai->n', X - X.mean(1, keepdims=True),
+        X - X.mean(1, keepdims=True)).max()), N_ATOMS)
+    runs = {}
+    for name, kw in (('mesh', dict(mesh=mesh)), ('one', dict(device=device))):
+        reset_launches()
+        engine_kmedoids._pam_sweeps.n_host_syncs = 0
+        with Stage(hybrid_mod, '_kcenters') as kc, \
+                Stage(hybrid_mod, '_kmedoids_iterations') as pam:
+            res = KHybrid('rmsd', n_clusters=CLUSTER_K, kmedoids_updates=5,
+                          random_state=0, **kw).fit(X).result_
+        runs[name] = (res, kc, pam, engine_kmedoids._pam_sweeps.n_host_syncs,
+                      kcenters_iteration_skip.n_launches,
+                      kcenters_chunk.n_launches)
+    (res_m, kc_m, pam_m, sy_m, k4_m, k1_m), (res_1, kc_1, pam_1, sy_1, k4_1,
+                                             k1_1) = runs.values()
+    check(k4_m > 0 and k1_m == 0 and k1_1 > 0 and k4_1 == 0,
+          '16a: k-centers launches: mesh kernel 4 %d, kernel 1 %d; one '
+          'device kernel 4 %d, kernel 1 %d' % (k4_m, k1_m, k4_1, k1_1))
+    check(pam_m.qcp > 0 and pam_m.qcp % N_SHARDS == 0 and pam_1.qcp > 0,
+          '16a: kernel 5 launches in PAM: mesh %d, one device %d'
+          % (pam_m.qcp, pam_1.qcp))
+    for r, kc in ((res_m, kc_m), (res_1, kc_1)):
+        ctr = np.asarray(r.center_indices)
+        check(len(set(ctr.tolist())) == CLUSTER_K, '16a: %d distinct '
+              'centers' % len(set(ctr.tolist())))
+        check(pam_cost(r.distances) <= pam_cost(kc.result.distances),
+              '16a: PAM raised the cost')
+    seeds = int((np.asarray(kc_m.result.center_indices)
+                 != np.asarray(kc_1.result.center_indices)).sum())
+    verdict = compare_pam(
+        (res_m.center_indices, res_m.distances, res_m.assignments),
+        (res_1.center_indices, res_1.distances, res_1.assignments), bar,
+        '16a')
+    print('16a KHybrid %d x %d -> %d, 5 sweeps, on %d shards against one '
+          'device: k-centers seeds differ at %d centers; PAM %s'
+          % (len(X), N_ATOMS, CLUSTER_K, N_SHARDS, seeds, verdict))
+    print('[%s] 16a KHybrid over the mesh: k-centers %.4f s (%d kernel 4 '
+          'launches), PAM %.4f s (%d host syncs, %d kernel 5 launches); one '
+          'device: k-centers %.4f s, PAM %.4f s (%d host syncs, %d kernel 5 '
+          'launches); phase 5 in this run: PAM %.4f s, %d host syncs'
+          % (card, kc_m.seconds, k4_m, pam_m.seconds, sy_m, pam_m.qcp,
+             kc_1.seconds, pam_1.seconds, sy_1, pam_1.qcp,
+             phase5['pam_seconds'], phase5['pam_syncs']), flush=True)
+    return pam_m.qcp
+
+
+def sweeps_mesh_check(X, mesh, device, card):
+    """Phase 16b: the device sweeps over the mesh at phase 5's full 1M
+    frames from a kcenters(mesh=) seed, against one device from the same
+    seed. Returns kernel 5's launches over the mesh."""
+    seed = kcenters(X, 'rmsd', n_clusters=CLUSTER_K, mesh=mesh)
+    bar = bar_from(2.02 * float(np.einsum(
+        'nai,nai->n', X - X.mean(1, keepdims=True),
+        X - X.mean(1, keepdims=True)).max()), N_ATOMS)
+    out = {}
+    for name, kw in (('mesh', dict(mesh=mesh)), ('one', dict(device=device))):
+        prep = engine.prepare_rmsd_frames(X, **kw)
+        kw = {'mesh': mesh} if name == 'mesh' else {}
+        reset_launches()
+        engine_kmedoids._pam_sweeps.n_host_syncs = 0
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = engine_kmedoids.kmedoids_sweeps_device(
+            prep, 'rmsd', seed.assignments, seed.distances,
+            seed.center_indices, n_sweeps=MESH_SWEEPS, seed=0, **kw)
+        torch.cuda.synchronize()
+        out[name] = (res, time.perf_counter() - t,
+                     engine_kmedoids._pam_sweeps.n_host_syncs,
+                     qcp_matrix.qcp_rmsd_matrix_kernel.n_launches)
+        del prep
+        torch.cuda.empty_cache()
+    (rm, tm, sm, qm), (r1, t1, s1, q1) = out.values()
+    check(qm > 0 and qm % N_SHARDS == 0 and q1 > 0,
+          '16b: kernel 5 launches: mesh %d, one device %d' % (qm, q1))
+    c0 = pam_cost(seed.distances)
+    check(pam_cost(rm[1]) <= c0 and pam_cost(r1[1]) <= c0,
+          '16b: the sweeps raised the cost above the seed\'s %r' % c0)
+    verdict = compare_pam(rm, r1, bar, '16b')
+    print('16b kmedoids_sweeps_device %d x %d, %d medoids from '
+          'kcenters(mesh=), %d sweeps on %d shards against one device: %s; '
+          'seed cost %.9g' % (len(X), N_ATOMS, CLUSTER_K, MESH_SWEEPS,
+                              N_SHARDS, verdict, c0))
+    print('[%s] 16b sweeps over the mesh %.4f s (%d host syncs, %d kernel 5 '
+          'launches); one device %.4f s (%d host syncs, %d kernel 5 '
+          'launches)' % (card, tm, sm, qm, t1, s1, q1), flush=True)
+    return qm
+
+
+def _free_port():
+    import socket
+    s = socket.socket()
+    s.bind(('localhost', 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def job_worker(rank, d):
+    """Phase 16c's process ``rank``: the cluster CLI's multi-process
+    sequence (join_job, the flags, load, fit over the job's mesh, rank
+    0's writes but for the .h5 file, the closing barrier) on the job in
+    ``d``; its result and stage seconds are saved for the parent."""
+    import torch.distributed as dist
+    from enspara_tpu_torch.exception import ImproperlyConfigured
+
+    with open(os.path.join(d, 'job.json')) as f:
+        job = json.load(f)
+    argv = job['argv%d' % rank]
+    t = time.perf_counter()
+    mesh = cluster_app.join_job()
+    t_join = time.perf_counter() - t
+    device = require_cuda()
+    check(mesh is not None and mesh.size == JOB_PROCS
+          and mesh.process_index == rank and mesh.first_shard == rank,
+          'job mesh %r' % (mesh,))
+    try:
+        cluster_app.check_job(cluster_app.process_command_line(
+            argv + ['--subsample', '2']), mesh)
+        check(False, '--subsample 2 was not refused')
+    except ImproperlyConfigured:
+        pass
+    args = cluster_app.process_command_line(argv)
+    cluster_app.check_job(args, mesh)
+    t = time.perf_counter()
+    lengths, data = cluster_util.load_trjs_or_features(args)
+    t_load = time.perf_counter() - t
+    reset_launches()
+    engine_kmedoids._pam_sweeps.n_host_syncs = 0
+    with Stage(hybrid_mod, '_kcenters') as kc, \
+            Stage(hybrid_mod, '_kmedoids_iterations') as pam:
+        clustering = cluster_app.fit(args, data, device, mesh)
+    t = time.perf_counter()
+    wrote = cluster_app.write_outputs(args, clustering, lengths, device,
+                                      mesh, h5=False)
+    t_write = time.perf_counter() - t
+    t = time.perf_counter()
+    cluster_app.end_job(mesh)
+    t_end = time.perf_counter() - t
+    r = clustering.result_
+    np.savez(os.path.join(d, 'res%d.npz' % rank),
+             ctr=np.asarray(r.center_indices), assig=r.assignments,
+             dist=r.distances, seed=kc.result.distances)
+    with open(os.path.join(d, 'stages%d.json' % rank), 'w') as f:
+        json.dump({'join': t_join, 'load': t_load, 'kcenters': kc.seconds,
+                   'pam': pam.seconds, 'write': t_write, 'barrier': t_end,
+                   'wrote': wrote, 'syncs':
+                   engine_kmedoids._pam_sweeps.n_host_syncs,
+                   'k4': kcenters_iteration_skip.n_launches,
+                   'qcp': pam.qcp, 'backend': dist.get_backend(mesh.group)},
+                  f)
+    print('JOB WORKER %d OK' % rank, flush=True)
+    dist.destroy_process_group()
+
+
+def job_check(device, card):
+    """Phase 16c: the cluster CLI in two processes joined over gloo (each
+    one shard, frame_mesh() of cuda:0) on JOB_FILES of phase 5's XTC
+    files, --algorithm khybrid --cluster-number 1000 --subsample 1
+    --random-state 0; both processes' results bit for bit against an
+    in-process FrameMesh((cuda:0,) * 2) run, rank 0 alone writing.
+    Returns kernel 5's launches in one process's PAM."""
+    with tempfile.TemporaryDirectory() as d:
+        pdb, trjs, gsum = write_trajectories(d, JOB_FILES)
+        job = {}
+        for r in range(JOB_PROCS):
+            os.makedirs(os.path.join(d, 'r%d' % r))
+            argv = ['cluster', '--trajectories', *trjs, '--topology', pdb,
+                    '--atoms', 'name CA', '--algorithm', 'khybrid',
+                    '--cluster-number', str(CLUSTER_K), '--subsample', '1',
+                    '--random-state', '0']
+            for k, v in (('--distances', 'dist.h5'),
+                         ('--assignments', 'assig.h5'),
+                         ('--center-features', 'centers.pkl'),
+                         ('--center-indices', 'inds.npy')):
+                argv += [k, os.path.join(d, 'r%d' % r, v)]
+            job['argv%d' % r] = argv
+        with open(os.path.join(d, 'job.json'), 'w') as f:
+            json.dump(job, f)
+        port = str(_free_port())
+        procs = []
+        t = time.perf_counter()
+        for r in range(JOB_PROCS):
+            env = dict(os.environ, ENSPARA_TPU_COORDINATOR='localhost:' + port,
+                       ENSPARA_TPU_NUM_PROCESSES=str(JOB_PROCS),
+                       ENSPARA_TPU_PROCESS_ID=str(r))
+            env.pop('ENSPARA_TPU_LOCAL_SHARDS', None)
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), JOB_WORKER_FLAG,
+                 str(r), d], stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, env=env, text=True))
+        outs = []
+        try:
+            for p in procs:
+                outs.append(p.communicate(timeout=400)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        t_job = time.perf_counter() - t
+        for r, (p, out) in enumerate(zip(procs, outs)):
+            check(p.returncode == 0 and 'JOB WORKER %d OK' % r in out,
+                  'job worker %d exited %s:\n%s' % (r, p.returncode,
+                                                    out[-4000:]))
+        check(sorted(os.listdir(os.path.join(d, 'r0')))
+              == ['centers.pkl', 'inds.npy']
+              and os.listdir(os.path.join(d, 'r1')) == [],
+              'the writes: rank 0 %s, rank 1 %s'
+              % (os.listdir(os.path.join(d, 'r0')),
+                 os.listdir(os.path.join(d, 'r1'))))
+        stages = []
+        for r in range(JOB_PROCS):
+            with open(os.path.join(d, 'stages%d.json' % r)) as f:
+                stages.append(json.load(f))
+        check([s['wrote'] for s in stages] == [True, False],
+              'write_outputs wrote on %s' % [s['wrote'] for s in stages])
+
+        # the in-process reference: the same flags on two virtual shards
+        args = cluster_app.process_command_line(job['argv0'])
+        lengths, data = cluster_util.load_trjs_or_features(args)
+        reset_launches()
+        t = time.perf_counter()
+        ref = cluster_app.fit(args, data, None,
+                              FrameMesh((device,) * JOB_PROCS)).result_
+        torch.cuda.synchronize()
+        t_ref = time.perf_counter() - t
+        for r in range(JOB_PROCS):
+            got = np.load(os.path.join(d, 'res%d.npz' % r))
+            check(np.array_equal(got['ctr'], np.asarray(ref.center_indices))
+                  and np.array_equal(got['assig'], ref.assignments)
+                  and np.array_equal(got['dist'], ref.distances),
+                  '16c: process %d differs from the in-process 2-shard run'
+                  % r)
+            check(pam_cost(got['dist']) <= pam_cost(got['seed']),
+                  '16c: PAM raised the cost')
+        inds = np.load(os.path.join(d, 'r0', 'inds.npy'))
+        glob = [t_ * TRJ_FRAMES + f_ for t_, f_ in inds]
+        check(np.array_equal(glob, np.asarray(ref.center_indices))
+              and len(set(glob)) == CLUSTER_K,
+              '16c: the written center indices differ from the result')
+        with open(os.path.join(d, 'r0', 'centers.pkl'), 'rb') as f:
+            centers = pickle.load(f)
+        check(len(centers) == CLUSTER_K and all(
+            np.array_equal(c.xyz[0], data.xyz[g])
+            for c, g in zip(centers, glob)),
+            '16c: a written center structure is not its frame')
+    print('16c cluster CLI in %d processes joined over %s, 1 shard of %s '
+          'each, on %d XTC files x %d frames, khybrid -> %d: both processes '
+          'equal the '
+          'in-process 2-shard run bit for bit; rank 0 alone wrote the center '
+          'indices and structures; --subsample 2 refused'
+          % (JOB_PROCS, stages[0]['backend'], device, JOB_FILES, TRJ_FRAMES,
+             CLUSTER_K))
+    for r, st in enumerate(stages):
+        print('[%s] 16c process %d: join %.4f s, load %.4f s, k-centers %.4f '
+              's (%d kernel 4 launches), PAM %.4f s (%d host syncs, %d '
+              'kernel 5 launches), write %.4f s, barrier %.4f s'
+              % (card, r, st['join'], st['load'], st['kcenters'], st['k4'],
+                 st['pam'], st['syncs'], st['qcp'], st['write'],
+                 st['barrier']))
+    print('[%s] 16c job %.4f s from launch to exit; in-process 2-shard fit '
+          '%.4f s' % (card, t_job, t_ref), flush=True)
+    return stages[0]['qcp']
+
+
+def mesh_pam_path(device, card, phase5):
+    """Phase 16: the PAM sweeps over a 4-shard mesh of the card and the
+    multi-process cluster CLI. Returns kernel 5's launches by part."""
+    mesh = FrameMesh((device,) * N_SHARDS)
+    X = phase5_data()
+    sub = X.reshape(N_TRJ, TRJ_FRAMES, N_ATOMS, 3)[:, ::SUBSAMPLE] \
+        .reshape(-1, N_ATOMS, 3)
+    launches = {'16a': khybrid_mesh_check(sub, mesh, device, card, phase5)}
+    del sub
+    torch.cuda.empty_cache()
+    launches['16b'] = sweeps_mesh_check(X, mesh, device, card)
+    del X
+    torch.cuda.empty_cache()
+    launches['16c'] = job_check(device, card)
+    print('[%s] phase 16 (PAM over a mesh, the multi-process CLI) passed'
+          % card, flush=True)
+    return launches
+
+
 def main():
     card = card_line()
     print('card:', card, flush=True)
@@ -4165,18 +4514,25 @@ def main():
 
     # -- 15. the explicit-dye route of smFRET -------------------------------
     explicit_dye_path(device, card)
+    torch.cuda.empty_cache()
+
+    # -- 16. the PAM sweeps over a mesh, the multi-process cluster CLI -----
+    mesh_pam = mesh_pam_path(device, card, path)
     print('launches: north star kcenters_step %d; north star tri_skip=False '
           'kcenters_step_noskip %d; cluster -> reassign kcenters_step %d, '
           'qcp_matrix %d; scale-point eigensolve ell_spmm %d; implied '
           'timescales ell_spmm %d; sharded path kcenters_iteration_skip %d; '
           'tri_skip=False qcp_update %d; bf16 north star kcenters_step %d, '
           'tri_skip=False %d; bf16 sharded kcenters_iteration_skip %d, '
-          'tri_skip=False qcp_update %d'
+          'tri_skip=False qcp_update %d; PAM over the 4-shard mesh '
+          'qcp_matrix %d (KHybrid at phase 5\'s scale), %d (1M sweeps); '
+          'two-process CLI qcp_matrix %d a process'
           % (launches, noskip_launches, path['kcenters_step'],
              path['qcp_matrix'], ell_launches, its_launches,
              sharded['kcenters_iteration_skip'], sharded['qcp_update'],
              bf16_launches['1'], bf16_launches['2'], bf16_launches['4'],
-             bf16_launches['3']))
+             bf16_launches['3'], mesh_pam['16a'], mesh_pam['16b'],
+             mesh_pam['16c']))
 
     print(json.dumps({'kernels': [{
         'name': 'kcenters_step', 'route': 'cuda', 'source': SOURCE,
@@ -4216,4 +4572,7 @@ def main():
 
 
 if __name__ == '__main__':
-    main()
+    if sys.argv[1:2] == [JOB_WORKER_FLAG]:
+        job_worker(int(sys.argv[2]), sys.argv[3])
+    else:
+        main()

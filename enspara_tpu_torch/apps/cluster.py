@@ -19,9 +19,23 @@ k-centers kernels and ``--locality-sort`` clusters a locality-sorted
 layout (both ``--algorithm kcenters`` by rmsd only, as in the JAX app).
 
 It runs on the CUDA device; ``ENSPARA_TPU_PLATFORM=cpu`` runs it on the
-CPU, where every kernel takes its plain version. The multi-process mode
-is not ported yet and raises ``ImproperlyConfigured`` naming the
-ROADMAP.md step that brings it.
+CPU, where every kernel takes its plain version.
+
+Multi-process mode (the reference's ``mpirun -n N cluster ...``): with
+``ENSPARA_TPU_COORDINATOR=host:port``, ``ENSPARA_TPU_NUM_PROCESSES=N``
+and ``ENSPARA_TPU_PROCESS_ID=r`` set, each process joins the job over
+``torch.distributed`` (:func:`join_job`) before it touches the card,
+loads the input, and fits over the job's frame mesh: this process's
+visible cards (or ``$ENSPARA_TPU_LOCAL_SHARDS`` of them; that many CPU
+shards under ``ENSPARA_TPU_PLATFORM=cpu``), joined by NCCL when every
+process leads from a card of its own and by gloo otherwise
+(:func:`~enspara_tpu_torch.parallel.mesh.job_mesh`). Rank 0 alone writes
+the outputs; the job ends at a barrier. ``--subsample`` above 1 is
+refused there, as in the JAX app.
+
+    ENSPARA_TPU_COORDINATOR=localhost:29500 ENSPARA_TPU_NUM_PROCESSES=2 \
+        ENSPARA_TPU_PROCESS_ID=0 python -m enspara_tpu_torch.apps.cluster \
+        --trajectories ... --algorithm khybrid --subsample 1 ...
 """
 
 import argparse
@@ -35,6 +49,7 @@ from .. import exception, ra
 from ..util.log import timed
 
 from ..cluster import KCenters, KHybrid, KMedoids, util
+from ..parallel.mesh import initialize_distributed, job_mesh
 from ..util.backend import select_device
 from ..util.checkpoint import (load_clustering_checkpoint,
                                save_clustering_checkpoint)
@@ -48,10 +63,8 @@ ALGORITHMS = {'kcenters': KCenters, 'khybrid': KHybrid,
               'kmedoids': KMedoids}
 
 
-def _not_ported(what, step):
-    return exception.ImproperlyConfigured(
-        '%s is not ported to enspara_tpu_torch yet: ROADMAP.md queue 1 '
-        'step %s' % (what, step))
+JOB_VARIABLES = ('ENSPARA_TPU_COORDINATOR', 'ENSPARA_TPU_NUM_PROCESSES',
+                 'ENSPARA_TPU_PROCESS_ID')
 
 
 def process_command_line(argv):
@@ -252,10 +265,44 @@ def _flat(path):
         else np.asarray(arr).reshape(-1)
 
 
-def fit(args, data, device):
-    """Build the parsed ``--algorithm``'s estimator on ``device`` and
-    fit it to ``data`` (k-medoids restarts from a ``--checkpoint`` that
-    holds a manifest, or from the ``--init-*`` files)."""
+def join_job():
+    """Join the multi-process job that ``$ENSPARA_TPU_COORDINATOR``
+    names (``torch.distributed`` over ``tcp://`` + the coordinator, the
+    world size and rank from ``$ENSPARA_TPU_NUM_PROCESSES`` and
+    ``$ENSPARA_TPU_PROCESS_ID``) and return the job's frame mesh; None
+    when the coordinator is not set. ``$ENSPARA_TPU_LOCAL_SHARDS``, when
+    set, is the number of shards this process holds (default: its
+    visible cards, or one CPU shard)."""
+    coord = os.environ.get(JOB_VARIABLES[0])
+    if not coord:
+        return None
+    missing = [v for v in JOB_VARIABLES[1:] if not os.environ.get(v)]
+    if missing:
+        raise exception.ImproperlyConfigured(
+            'Multi-process mode (%s=%s) also needs %s.'
+            % (JOB_VARIABLES[0], coord, ' and '.join(missing)))
+    initialize_distributed(
+        backend='gloo', init_method='tcp://' + coord,
+        world_size=int(os.environ[JOB_VARIABLES[1]]),
+        rank=int(os.environ[JOB_VARIABLES[2]]))
+    n = os.environ.get('ENSPARA_TPU_LOCAL_SHARDS')
+    return job_mesh(int(n) if n else None)
+
+
+def check_job(args, mesh):
+    """Refuse what a multi-process run does not support: the
+    reassignment of ``--subsample`` above 1."""
+    if mesh is not None and mesh.spans_processes and args.subsample > 1:
+        raise exception.ImproperlyConfigured(
+            'multi-host runs do not support --subsample reassignment '
+            'yet; reassign separately with the reassign app')
+
+
+def fit(args, data, device, mesh=None):
+    """Build the parsed ``--algorithm``'s estimator on ``device``, or
+    over ``mesh`` when given, and fit it to ``data`` (k-medoids restarts
+    from a ``--checkpoint`` that holds a manifest, or from the
+    ``--init-*`` files)."""
     kwargs = {}
     if args.cluster_iterations is not None:
         if args.Clusterer is KHybrid:
@@ -270,9 +317,12 @@ def fit(args, data, device):
         kwargs['precision'] = args.precision
     if args.locality_sort:
         kwargs['sort'] = 'locality'
+    if mesh is None:
+        kwargs['device'] = device
+    else:
+        kwargs['mesh'] = mesh
     clustering = args.Clusterer(metric=args.cluster_distance,
-                                n_clusters=args.cluster_number,
-                                device=device, **kwargs)
+                                n_clusters=args.cluster_number, **kwargs)
     if args.Clusterer is KMedoids:
         restart = {}
         if args.checkpoint and _manifest(args):
@@ -307,30 +357,50 @@ def center_indices(result, args):
     return [(t, f * args.subsample) for t, f in result.center_indices]
 
 
-def main(argv=None):
-    if argv is None:
-        argv = sys.argv
-    device = select_device()   # honors $ENSPARA_TPU_PLATFORM
-    if os.environ.get('ENSPARA_TPU_COORDINATOR'):
-        raise _not_ported('Multi-host mode (ENSPARA_TPU_COORDINATOR)', '11')
-
-    args = process_command_line(argv)
-    lengths, data = util.load_trjs_or_features(args)
-    clustering = fit(args, data, device)
-    del data
-    logger.info('Clustered %s frames into %s clusters in %s seconds.',
-                sum(lengths), len(clustering.centers_), clustering.runtime_)
+def write_outputs(args, clustering, lengths, device=None, mesh=None,
+                  h5=True):
+    """Write the fitted clustering's outputs (the checkpoint, the center
+    indices and structures and, with ``h5``, the ``.h5`` assignments and
+    distances, reassigned on ``device`` for ``--subsample`` above 1) on
+    rank 0 of the job alone. Returns whether this process wrote."""
+    if mesh is not None and mesh.process_index != 0:
+        return False
     if args.checkpoint:
         save_checkpoint(args, clustering)
-
     result = clustering.result_.partition(lengths)
     with timed('Wrote center indices in %.2f sec.', logger.info):
         util.write_centers_indices(args.center_indices,
                                    center_indices(result, args))
     with timed('Wrote center structures in %.2f sec.', logger.info):
         util.write_centers(result, args)
-    util.write_assignments_and_distances_with_reassign(result, args,
-                                                       device=device)
+    if h5:
+        util.write_assignments_and_distances_with_reassign(
+            result, args, device=device if mesh is None else mesh.lead)
+    return True
+
+
+def end_job(mesh):
+    """Wait for every process of a multi-process job (a barrier)."""
+    if mesh is not None and mesh.spans_processes:
+        import torch.distributed as dist
+        dist.barrier()
+
+
+def main(argv=None):
+    if argv is None:
+        argv = sys.argv
+    mesh = join_job()          # before anything touches the card
+    device = select_device()   # honors $ENSPARA_TPU_PLATFORM
+
+    args = process_command_line(argv)
+    check_job(args, mesh)
+    lengths, data = util.load_trjs_or_features(args)
+    clustering = fit(args, data, device, mesh)
+    del data
+    logger.info('Clustered %s frames into %s clusters in %s seconds.',
+                sum(lengths), len(clustering.centers_), clustering.runtime_)
+    write_outputs(args, clustering, lengths, device, mesh)
+    end_job(mesh)
     logger.info('Success! Data can be found in %s.',
                 os.path.dirname(args.distances))
     return 0

@@ -49,9 +49,12 @@ kernel on its frames (``kcenters_iteration_skip``, or
 ``kcenters_iteration`` with ``tri_skip=False``), and the argmax across
 shards and the broadcast of the center's column are torch ops on the
 mesh's lead device, then ``torch.distributed`` collectives when the
-mesh spans processes. Assignment runs per shard. With no mesh, every
-function runs on one device (``device=``, or where the input lies);
-the results do not depend on the shard count.
+mesh spans processes. Assignment runs per shard, and so does the
+all-pairs block of the PAM sweeps (:func:`_pairwise_block` on a sharded
+container: each shard's rows against columns brought to it by one
+owner-masked sum). With no mesh, every function runs on one device
+(``device=``, or where the input lies); the results do not depend on
+the shard count.
 """
 
 import math
@@ -68,6 +71,7 @@ from ..ops.qcp_matrix import (TILE_C, pad_centers, pad_frames,
                               qcp_rmsd_matrix_block, to_layout)
 from ..ops.qcp_update import kcenters_iteration
 from ..parallel.mesh import host_fetch, pad_to_multiple, shard_frames
+from ..parallel.ops import distribute_frames, owned_rows
 from ..util.device import resolve_device
 
 __all__ = ['KCentersDeviceResult', 'PreparedRMSDFrames', 'ShardedRMSDFrames',
@@ -919,13 +923,20 @@ def _gather(prep, idx, width):
     return cols, g
 
 
-def _pairwise_block(prep, cols, rows=None):
+def _pairwise_block(prep, cols, rows=None, mesh=None):
     """Distances of frames ``rows`` (default: all ``n_pad`` of them) to
     frames ``cols`` of ``prep``, ``(n_rows, len(cols))`` float32, under
     the metric ``prep`` was prepared for: for RMSD one all-pairs block,
     the CUDA kernel on the card; for features
     :func:`~enspara_tpu_torch.ops.distances.pairwise_distance` (the
-    Gram form for euclidean)."""
+    Gram form for euclidean).
+
+    For a sharded container (with its ``mesh``), one block per local
+    shard: that shard's rows (``rows``: one vector of local indices per
+    shard) against the columns ``cols``, given by global frame index and
+    brought to every shard by :func:`_columns`."""
+    if isinstance(prep, (ShardedRMSDFrames, ShardedFeatures)):
+        return _pairwise_blocks_sharded(prep, cols, rows, mesh)
     if isinstance(prep, PreparedFeatures):
         data = prep.data
         cols = torch.as_tensor(cols, dtype=torch.long, device=prep.device)
@@ -943,6 +954,56 @@ def _pairwise_block(prep, cols, rows=None):
     cr, gc = _gather(prep, cols, pad_centers(len(cols)))
     return qcp_rmsd_matrix_block(fr, gf, cr, gc, prep.n_atoms)[
         :n_rows, :len(cols)]
+
+
+def _columns(prep, cols, mesh):
+    """Frames ``cols`` (global indices) of a sharded container on every
+    local shard, in one owner-masked collective: feature rows as they
+    lie, or RMSD layout columns with their G as a ``(3*A_pad + 1,
+    len(cols))`` float32 block (G the last row)."""
+    cols = torch.as_tensor(cols, dtype=torch.long, device=mesh.lead)
+    if isinstance(prep, ShardedFeatures):
+        return distribute_frames([sh.data for sh in prep.shards], cols, mesh)
+    parts = []
+    for s, sh in enumerate(prep.shards):
+        li, own = owned_rows(cols.to(sh.device), prep.n_local,
+                             prep.first_shard + s)
+        cg = torch.cat((sh.frames_r.index_select(1, li).float(),
+                        sh.g.index_select(1, li)))
+        parts.append(torch.where(own, cg, 0.0))
+    cg = mesh.reduce(parts)
+    return [cg.to(d) for d in mesh.devices]
+
+
+def _pairwise_blocks_sharded(prep, cols, rows, mesh):
+    """:func:`_pairwise_block` on a :class:`ShardedRMSDFrames` or
+    :class:`ShardedFeatures`: a list of per-shard blocks."""
+    if mesh is None or mesh.size != prep.n_shards:
+        raise ValueError('a sharded container needs the mesh it was laid '
+                         'out for (%d shards)' % prep.n_shards)
+    colset = _columns(prep, cols, mesh)
+    out = []
+    for s, sh in enumerate(prep.shards):
+        r = None if rows is None else torch.as_tensor(
+            rows[s], dtype=torch.long, device=sh.device)
+        if isinstance(prep, ShardedFeatures):
+            out.append(pairwise_distance(sh.data if r is None else sh.data[r],
+                                         colset[s], prep.metric))
+            continue
+        c = colset[s].shape[1]
+        width = pad_centers(c)
+        cr = torch.nn.functional.pad(colset[s][:-1], (0, width - c))
+        gc = torch.nn.functional.pad(colset[s][-1], (0, width - c),
+                                     value=1.0)
+        if r is None:
+            fr, gf = _all_frames(sh)
+            n_rows = prep.n_local
+        else:
+            n_rows = len(r)
+            fr, gf = _gather(sh, r, pad_frames(n_rows))
+        out.append(qcp_rmsd_matrix_block(fr, gf, cr, gc, sh.n_atoms)[
+            :n_rows, :c])
+    return out
 
 
 def _assign_all_rmsd(prep, centers):

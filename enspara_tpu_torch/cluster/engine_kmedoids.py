@@ -19,6 +19,27 @@ batch end.
 Every ``lax.cond``/``fori_loop`` of the JAX sweep is Python control
 flow here, deciding on a device scalar read back to the host:
 ``n_host_syncs`` counts those reads.
+
+Over a :class:`~enspara_tpu_torch.parallel.mesh.FrameMesh` of several
+shards (a sharded container from ``engine``) every per-frame array
+lives per shard, and the collectives GSPMD puts into the JAX sweep are
+explicit: the medoid and proposal columns reach every shard through one
+owner-masked sum per block (``engine._columns``); the proposal of each
+cluster is the global first argmax of the shards' priorities
+(``parallel.ops.global_argmax``); the candidate's zero self-distance is
+set on the shard that owns it; costs, the screen and the counts that
+decide a repair are per-shard partial sums, reduced over the mesh
+before any host read, so that every process reads the same values and
+takes the same branch. The costs add the float32 squares in float64,
+within each shard and over the mesh, and are rounded to float32 once,
+as the JAX sweep's float32 cost is: their rounding then does not
+depend on how the frames are split into shards or the shards over
+processes, and a mesh accepts the swaps of one device but where two
+float64 sums round to float32 apart. Each shard
+repairs its own stale points:
+commits keep the global stale count within the bucket, so a shard's
+bucket holds all of them. A one-device container runs the same code as
+a mesh of one shard.
 """
 
 import math
@@ -27,8 +48,10 @@ import numpy as np
 import torch
 
 from . import engine
+from ..parallel.mesh import FrameMesh, host_fetch
+from ..parallel.ops import global_argmax, owned_rows
 
-__all__ = ['kmedoids_sweeps_device']
+__all__ = ['kmedoids_sweeps_device', 'sweep_bits']
 
 _M32 = 0xFFFFFFFF
 
@@ -50,29 +73,67 @@ def _read(*ts):
         .cpu().tolist()
 
 
-def _pam_sweeps(prep, d1, a1, medoid_inds, sweep_bits, bucket, batch=64):
+def _pam_sweeps(prep, d1, a1, medoid_inds, sweep_bits, bucket, batch=64,
+                mesh=None):
     """PAM sweeps over ``prep``'s frames from the warm start ``(d1,
     a1)``, one per entry of ``sweep_bits``.
 
-    ``d1``/``a1`` are (n_pad,) float32/int32 on ``prep``'s device (inf
-    and -1 past ``prep.n``); ``medoid_inds`` (k,) int64 frame indices;
-    ``sweep_bits`` yields one (n_pad,) int64 tensor of random uint32
-    values per sweep (the JAX module draws ``jax.random.bits(fold_in(
-    key, s), (n_pad,), uint32)``). Returns ``(d1, a1, medoid_inds)``.
+    On one device ``d1``/``a1`` are (n_pad,) float32/int32 on ``prep``'s
+    device (inf and -1 past ``prep.n``); for a sharded ``prep`` they are
+    lists of this process's (n_local,) per-shard tensors, and ``mesh``
+    is the mesh ``prep`` was laid out for. ``medoid_inds`` (k,) int64
+    global frame indices; ``sweep_bits`` yields one int64 tensor of
+    random uint32 values per sweep, of which the first ``prep.n`` are
+    used (the JAX module draws ``jax.random.bits(fold_in(key, s),
+    (n_pad,), uint32)``). Returns ``(d1, a1, medoid_inds)`` in the form
+    ``d1``/``a1`` came in.
     """
-    dev = prep.device
-    n_pad = prep.n_pad
-    valid = torch.arange(n_pad, device=dev) < prep.n
+    sharded = isinstance(prep, (engine.ShardedRMSDFrames,
+                                engine.ShardedFeatures))
+    if sharded:
+        if mesh is None or mesh.size != prep.n_shards:
+            raise ValueError('sharded frames need the mesh they were laid '
+                             'out for (%d shards)' % prep.n_shards)
+        shards, n_local = prep.shards, prep.n_local
+        first = prep.first_shard
+        d1, a1 = list(d1), list(a1)
+    else:
+        shards, n_local, first = (prep,), prep.n_pad, 0
+        mesh = FrameMesh((prep.device,))
+        d1, a1 = [d1], [a1]
+    lead = mesh.lead
+    S = range(len(shards))
+    devs = [sh.device for sh in shards]
+    starts = [(first + s) * n_local for s in S]
     n_valid = int(prep.n)
+    n_pad = n_local * mesh.size
+    valid = [torch.arange(starts[s], starts[s] + n_local, device=devs[s])
+             < n_valid for s in S]
     medoid_inds = torch.as_tensor(medoid_inds, dtype=torch.long,
-                                  device=dev).clone()
+                                  device=lead).clone()
     k = int(medoid_inds.shape[0])
     B = int(min(batch, k))
     n_batches = (k + B - 1) // B
-    inf = torch.tensor(math.inf, device=dev)
 
-    def cost(d):
-        return torch.where(valid, d * d, 0.0).sum() / n_valid
+    def block(cols, rows=None):
+        if sharded:
+            return engine._pairwise_block(prep, cols, rows, mesh)
+        return [engine._pairwise_block(prep, cols,
+                                       None if rows is None else rows[0])]
+
+    def total(parts):
+        """The sum over the mesh of per-shard float64 partials, on the
+        lead device."""
+        return mesh.reduce([p.to(torch.float64) for p in parts])
+
+    def cost(parts):
+        """Mean square distance from per-shard sums of squares, rounded
+        to float32 as the JAX sweep's cost is."""
+        return total(parts).float() / n_valid
+
+    def sq_sums(ds):
+        return [torch.where(valid[s], ds[s] * ds[s], 0.0).sum(
+            dtype=torch.float64) for s in S]
 
     # ---- the exact second-nearest cache from the warm start: chunked
     # (n, 64) blocks, running min over every medoid but a point's own
@@ -80,121 +141,161 @@ def _pam_sweeps(prep, d1, a1, medoid_inds, sweep_bits, bucket, batch=64):
     n_chunks = (k + C_CHUNK - 1) // C_CHUNK
     minds_pad = torch.nn.functional.pad(medoid_inds,
                                         (0, n_chunks * C_CHUNK - k))
-    d2 = torch.full((n_pad,), math.inf, device=dev)
-    a2 = torch.full((n_pad,), -1, dtype=torch.int32, device=dev)
+    d2 = [torch.full((n_local,), math.inf, device=dv) for dv in devs]
+    a2 = [torch.full((n_local,), -1, dtype=torch.int32, device=dv)
+          for dv in devs]
     for ci in range(n_chunks):
         cids = ci * C_CHUNK + torch.arange(C_CHUNK, dtype=torch.int32,
-                                           device=dev)
-        D = engine._pairwise_block(prep, minds_pad[cids.long()])
-        invalid = (cids[None, :] == a1[:, None]) | (cids[None, :] >= k)
-        cmin, carg = torch.where(invalid, inf, D).min(dim=1)
-        better = (cmin < d2) & valid
-        d2 = torch.where(better, cmin, d2)
-        a2 = torch.where(better, cids[carg], a2)
+                                           device=lead)
+        Ds = block(minds_pad[cids.long()])
+        for s in S:
+            c = cids.to(devs[s])
+            invalid = (c[None, :] == a1[s][:, None]) | (c[None, :] >= k)
+            cmin, carg = torch.where(invalid, math.inf, Ds[s]).min(dim=1)
+            better = (cmin < d2[s]) & valid[s]
+            d2[s] = torch.where(better, cmin, d2[s])
+            a2[s] = torch.where(better, c[carg], a2[s])
 
-    def repair(d2, a2, stale, medoid_inds):
-        """One k-way re-rank restores (d2, a2) for every stale point;
-        (d1, a1) are exact throughout and stay as they are. The bucket
-        holds the stale points, lowest index first, then filler."""
-        amb_idx = torch.argsort((~stale).to(torch.int8), stable=True)[:bucket]
-        amb_real = stale[amb_idx]
-        d_amb = engine._pairwise_block(prep, medoid_inds, rows=amb_idx)
-        # self-distance clamp for bucketed medoid points
-        d_amb = torch.where(amb_idx[:, None] == medoid_inds[None, :], 0.0,
-                            d_amb)
-        hide = (torch.arange(k, device=dev)[None, :]
-                == a1[amb_idx][:, None])
-        b_d2, b_a2 = torch.where(hide, inf, d_amb).min(dim=1)
-        d2 = d2.clone()
-        a2 = a2.clone()
-        d2[amb_idx] = torch.where(amb_real, b_d2, d2[amb_idx])
-        a2[amb_idx] = torch.where(amb_real, b_a2.to(torch.int32),
-                                  a2[amb_idx])
+    def repair(a1, d2, a2, stale, medoid_inds):
+        """One k-way re-rank restores (d2, a2) for every stale point of
+        every shard; (d1, a1) are exact throughout and stay as they are.
+        A shard's bucket holds its stale points, lowest index first,
+        then filler."""
+        amb = [torch.argsort((~st).to(torch.int8), stable=True)[:bucket]
+               for st in stale]
+        Ds = block(medoid_inds, rows=amb)
+        d2, a2 = list(d2), list(a2)
+        for s in S:
+            idx = amb[s]
+            amb_real = stale[s][idx]
+            m = medoid_inds.to(devs[s])
+            # self-distance clamp for bucketed medoid points
+            d_amb = torch.where((idx + starts[s])[:, None] == m[None, :],
+                                0.0, Ds[s])
+            hide = (torch.arange(k, device=devs[s])[None, :]
+                    == a1[s][idx][:, None])
+            b_d2, b_a2 = torch.where(hide, math.inf, d_amb).min(dim=1)
+            d2[s] = d2[s].clone()
+            a2[s] = a2[s].clone()
+            d2[s][idx] = torch.where(amb_real, b_d2, d2[s][idx])
+            a2[s][idx] = torch.where(amb_real, b_a2.to(torch.int32),
+                                     a2[s][idx])
         return d2, a2
 
-    cost_cur = cost(d1)
+    cost_cur = cost(sq_sums(d1))
     for rbits in sweep_bits:
-        rbits = rbits.to(device=dev, dtype=torch.long)
+        # the sweep's n values, padded and cut into this process's shards
+        rbits = torch.as_tensor(rbits).reshape(-1)[:n_valid].to(
+            device=lead, dtype=torch.long)
+        rbits = torch.nn.functional.pad(rbits, (0, n_pad - n_valid))
+        rb = [rbits[starts[s]:starts[s] + n_local].to(devs[s]) for s in S]
         for bi in range(n_batches):
-            cids = bi * B + torch.arange(B, dtype=torch.long, device=dev)
+            cids = bi * B + torch.arange(B, dtype=torch.long, device=lead)
             # a uniform member per cluster, all B clusters in one (B, n)
             # pass: the argmax of iid random priorities over a member
             # set is uniform on it; |1 keeps members above the 0 of
             # non-members. sampled_ok: the cluster had members.
-            member0 = (a1[None, :] == cids[:, None]) & valid[None, :]
-            mixed = rbits[None, :] ^ ((0x9E3779B9 * cids[:, None]) & _M32)
-            mixed = _mul32(mixed, 0x85EBCA6B)
-            prio = torch.where(member0, mixed | 1, 0)
-            p_idxs = torch.argmax(prio, dim=1)
-            sampled_ok = prio.amax(dim=1) > 0
+            member0, prio = [], []
+            for s in S:
+                c = cids.to(devs[s])
+                m0 = (a1[s][None, :] == c[:, None]) & valid[s][None, :]
+                mixed = rb[s][None, :] ^ ((0x9E3779B9 * c[:, None]) & _M32)
+                mixed = _mul32(mixed, 0x85EBCA6B)
+                member0.append(m0)
+                prio.append(torch.where(m0, mixed | 1, 0).t())
+            pmax, p_idxs = global_argmax(prio, mesh)
+            sampled_ok = pmax > 0
 
             # one (n, B) block for the whole batch, then (B, n) rows; a
-            # candidate's distance to itself is 0 by definition
-            Dt = engine._pairwise_block(prep, p_idxs).t().contiguous()
-            Dt[torch.arange(B, device=dev), p_idxs] = 0.0
+            # candidate's distance to itself is 0 by definition, set on
+            # the shard that owns it
+            Dt = []
+            for s, D in zip(S, block(p_idxs)):
+                D = D.t().contiguous()
+                li, own = owned_rows(p_idxs.to(devs[s]), n_local, first + s)
+                r = torch.arange(B, device=devs[s])
+                D[r, li] = torch.where(own, 0.0, D[r, li])
+                Dt.append(D)
 
             # batch-start screen: exact post-swap cost of every proposal
             # at batch start, a pre-filter once accepts move the cache
-            cand0 = torch.where(member0, torch.minimum(d2[None, :], Dt),
-                                torch.minimum(d1[None, :], Dt))
-            est0 = torch.where(valid[None, :], cand0 * cand0, 0.0) \
-                .sum(dim=1) / n_valid
+            est_parts = []
+            for s in S:
+                cand0 = torch.where(member0[s],
+                                    torch.minimum(d2[s][None, :], Dt[s]),
+                                    torch.minimum(d1[s][None, :], Dt[s]))
+                est_parts.append(torch.where(
+                    valid[s][None, :], cand0 * cand0, 0.0).sum(
+                    dim=1, dtype=torch.float64))
+            est0 = cost(est_parts)
             vals = _read(cost_cur, est0, sampled_ok, p_idxs)
             cost_h = vals[0]
             est0_h, ok_h = vals[1:B + 1], vals[B + 1:2 * B + 1]
             p_idx_h = [int(v) for v in vals[2 * B + 1:]]
 
-            stale = torch.zeros(n_pad, dtype=torch.bool, device=dev)
+            stale = [torch.zeros(n_local, dtype=torch.bool, device=dv)
+                     for dv in devs]
             for b in range(B):
                 cid = bi * B + b
                 if not (est0_h[b] < cost_h and ok_h[b] and cid < k):
                     continue
-                dnew = Dt[b]
-                members = (a1 == cid) & valid
+                dnew = [Dt[s][b] for s in S]
+                members = [(a1[s] == cid) & valid[s] for s in S]
+                # points whose (d2, a2) the swap would leave inexact
+                unc = [(members[s] | (a2[s] == cid)) & (dnew[s] > d2[s])
+                       & valid[s] for s in S]
                 # repair on demand: a stale member's d2 would make the
                 # post-swap d1 inexact, and an over-budget stale set
                 # could not be repaired later
-                unc_bound = (members | (a2 == cid)) & (dnew > d2) & valid
-                need = _read((members & stale).any()
-                             | ((stale | unc_bound).sum() > bucket))[0]
-                if need:
-                    d2, a2 = repair(d2, a2, stale, medoid_inds)
-                    stale = torch.zeros_like(stale)
+                n_ms, n_su = _read(total([torch.stack((
+                    (members[s] & stale[s]).sum(),
+                    (stale[s] | unc[s]).sum())) for s in S]))
+                if n_ms > 0 or n_su > bucket:
+                    d2, a2 = repair(a1, d2, a2, stale, medoid_inds)
+                    stale = [torch.zeros_like(st) for st in stale]
+                    unc = [(members[s] | (a2[s] == cid))
+                           & (dnew[s] > d2[s]) & valid[s] for s in S]
 
-                cand_d1 = torch.where(members, torch.minimum(d2, dnew),
-                                      torch.minimum(d1, dnew))
-                new_cost = cost(cand_d1)
-                uncertain = (members | (a2 == cid)) & (dnew > d2) & valid
-                new_stale = stale | uncertain
-                new_cost_h, n_stale = _read(new_cost, new_stale.sum())
+                cand_d1 = [torch.where(members[s],
+                                       torch.minimum(d2[s], dnew[s]),
+                                       torch.minimum(d1[s], dnew[s]))
+                           for s in S]
+                new_stale = [stale[s] | unc[s] for s in S]
+                tot = total([torch.stack((p, st.sum().double()))
+                             for p, st in zip(sq_sums(cand_d1), new_stale)])
+                new_cost = tot[0].float() / n_valid
+                new_cost_h, n_stale = _read(new_cost, tot[1])
                 if not (new_cost_h < cost_h and n_stale <= bucket):
                     continue
 
                 # commit: d1/a1 exact in every case; d2/a2 exact unless
                 # flagged stale, upper bounds until the next repair
-                in1, in2 = dnew < d1, dnew < d2
-                caseB = a1 == cid        # nearest displaced
-                caseC = a2 == cid        # second-nearest displaced
                 w = torch.where
-                na1 = w(caseB, w(in2, cid, a2), w(in1, cid, a1))
-                nd2 = w(caseB, torch.maximum(dnew, d2),
-                        w(caseC, torch.maximum(dnew, d1),
-                          w(in1, d1, w(in2, dnew, d2))))
-                na2 = w(caseB, w(in2, a2, cid),
-                        w(caseC, w(in1, a1, cid),
-                          w(in1, a1, w(in2, cid, a2))))
-                d1 = w(valid, cand_d1, inf)
-                a1 = w(valid, na1, -1).to(torch.int32)
-                d2 = w(valid, nd2, inf)
-                a2 = w(valid, na2, -1).to(torch.int32)
+                for s in S:
+                    in1, in2 = dnew[s] < d1[s], dnew[s] < d2[s]
+                    caseB = a1[s] == cid     # nearest displaced
+                    caseC = a2[s] == cid     # second-nearest displaced
+                    na1 = w(caseB, w(in2, cid, a2[s]), w(in1, cid, a1[s]))
+                    nd2 = w(caseB, torch.maximum(dnew[s], d2[s]),
+                            w(caseC, torch.maximum(dnew[s], d1[s]),
+                              w(in1, d1[s], w(in2, dnew[s], d2[s]))))
+                    na2 = w(caseB, w(in2, a2[s], cid),
+                            w(caseC, w(in1, a1[s], cid),
+                              w(in1, a1[s], w(in2, cid, a2[s]))))
+                    d1[s] = w(valid[s], cand_d1[s], math.inf)
+                    a1[s] = w(valid[s], na1, -1).to(torch.int32)
+                    d2[s] = w(valid[s], nd2, math.inf)
+                    a2[s] = w(valid[s], na2, -1).to(torch.int32)
                 medoid_inds[cid] = p_idx_h[b]
                 cost_cur, cost_h = new_cost, new_cost_h
                 stale = new_stale
 
             # batch-end repair: the next batch starts from an exact cache
-            if _read(stale.any())[0]:
-                d2, a2 = repair(d2, a2, stale, medoid_inds)
-    return d1, a1, medoid_inds
+            if _read(total([st.sum() for st in stale]))[0] > 0:
+                d2, a2 = repair(a1, d2, a2, stale, medoid_inds)
+    if sharded:
+        return d1, a1, medoid_inds
+    return d1[0], a1[0], medoid_inds
 
 
 # host reads of device scalars made by _pam_sweeps (one per lax.cond
@@ -202,46 +303,77 @@ def _pam_sweeps(prep, d1, a1, medoid_inds, sweep_bits, bucket, batch=64):
 _pam_sweeps.n_host_syncs = 0
 
 
+def sweep_bits(seed, n_sweeps, n, device):
+    """The random bits of each sweep: ``n`` uint32 values (as int64) per
+    sweep from one ``torch.Generator`` seeded with ``seed`` on
+    ``device``. Exactly ``n`` values whatever the layout's padding, so
+    that a seed gives the same proposals on one device, on any mesh and
+    in every process (a device's stream is not a prefix-stable function
+    of the size it draws)."""
+    gen = torch.Generator(device=device).manual_seed(int(seed))
+    for _ in range(int(n_sweeps)):
+        yield torch.randint(0, 2 ** 32, (int(n),), generator=gen,
+                            dtype=torch.long, device=device)
+
+
 def kmedoids_sweeps_device(X, metric, assignments, distances, medoid_inds,
                            n_sweeps=5, bucket_factor=8, seed=0, device=None,
-                           proposal_batch=64):
+                           proposal_batch=64, mesh=None):
     """Run ``n_sweeps`` device PAM sweeps from a warm start.
 
     Parameters
     ----------
     X : (n, d) features or (n, n_atoms, 3) coordinates (numpy or a
-        tensor), or a one-device container prepared for ``metric``
+        tensor), or a container prepared for ``metric``
         (:class:`~enspara_tpu_torch.cluster.engine.PreparedFeatures`,
-        :class:`~enspara_tpu_torch.cluster.engine.PreparedRMSDFrames`).
+        :class:`~enspara_tpu_torch.cluster.engine.PreparedRMSDFrames`,
+        or their sharded forms laid out for ``mesh``).
     metric : 'rmsd' | 'euclidean' | 'manhattan' | 'hamming'.
     assignments, distances : warm-start state (e.g. from k-centers).
     medoid_inds : (k,) current medoid frame indices.
     bucket_factor : ambiguous-bucket size in units of n/k.
     seed : seeds the ``torch.Generator`` that draws each sweep's random
-        bits (deterministic for a seed and device; not jax's bits).
+        bits on the mesh's lead device (:func:`sweep_bits`; deterministic
+        for a seed and device type, not jax's bits).
     device : where to run host (numpy) input; tensors run where they lie.
     proposal_batch : proposals per all-pairs block.
+    mesh : a :class:`~enspara_tpu_torch.parallel.mesh.FrameMesh` to run
+        the sweeps over its shards (not with ``device``); prepared
+        frames laid out for another shard count raise ``ValueError``.
 
-    Returns ``(medoid_inds, distances, assignments)`` as numpy arrays.
+    Returns ``(medoid_inds, distances, assignments)`` as numpy arrays
+    (on every process of a mesh that spans processes).
     """
-    prep = engine._prepared(X, metric, device)
-    dev = prep.device
-    n, n_pad = prep.n, prep.n_pad
-    k = len(medoid_inds)
+    prep = engine._prepared(X, metric, device, mesh)
+    sharded = isinstance(prep, (engine.ShardedRMSDFrames,
+                                engine.ShardedFeatures))
+    n, k = prep.n, len(medoid_inds)
     bucket = int(min(n, max(64, bucket_factor * ((n + k - 1) // k))))
+    if sharded:
+        shards, n_local, first = prep.shards, prep.n_local, prep.first_shard
+        lead = mesh.lead
+    else:
+        shards, n_local, first = (prep,), prep.n_pad, 0
+        lead = prep.device
+    n_pad = n_local * (prep.n_shards if sharded else 1)
 
     d1 = np.full(n_pad, np.inf, np.float32)
     d1[:n] = distances
     a1 = np.full(n_pad, -1, np.int32)
     a1[:n] = assignments
-    gen = torch.Generator(device=dev).manual_seed(int(seed))
-    sweep_bits = (torch.randint(0, 2 ** 32, (n_pad,), generator=gen,
-                                dtype=torch.long, device=dev)
-                  for _ in range(int(n_sweeps)))
+
+    def local(a):
+        return [torch.from_numpy(a[(first + s) * n_local:][:n_local].copy())
+                .to(sh.device) for s, sh in enumerate(shards)]
+    d1_l, a1_l = local(d1), local(a1)
     d1_out, a1_out, m_out = _pam_sweeps(
-        prep, torch.from_numpy(d1).to(dev), torch.from_numpy(a1).to(dev),
-        np.asarray(medoid_inds, dtype=np.int64), sweep_bits, bucket,
-        batch=int(proposal_batch))
+        prep, d1_l if sharded else d1_l[0], a1_l if sharded else a1_l[0],
+        np.asarray(medoid_inds, dtype=np.int64),
+        sweep_bits(seed, n_sweeps, n, lead), bucket,
+        batch=int(proposal_batch), mesh=mesh if sharded else None)
+    if sharded:
+        d_out, a_out = host_fetch(d1_out, mesh), host_fetch(a1_out, mesh)
+    else:
+        d_out, a_out = d1_out.cpu().numpy(), a1_out.cpu().numpy()
     return (m_out.cpu().numpy().astype(np.int64),
-            d1_out[:n].cpu().numpy().astype(np.float64),
-            a1_out[:n].cpu().numpy().astype(np.int64))
+            d_out[:n].astype(np.float64), a_out[:n].astype(np.int64))

@@ -13,7 +13,7 @@ from .engine_kmedoids import kmedoids_sweeps_device
 from .kcenters import kcenters as _kcenters
 from .kmedoids import _kmedoids_iterations
 from .util import run_timed
-from ..parallel.mesh import single_shard_device
+from ..parallel.mesh import placement
 from ..util.backend import check_random_state
 
 logger = logging.getLogger(__name__)
@@ -24,8 +24,9 @@ __all__ = ['KHybrid', 'hybrid', 'hybrid_device']
 class KHybrid(util.MolecularClusterMixin):
     """Sklearn-style estimator: k-centers to place centers, then
     ``kmedoids_updates`` PAM sweeps to refine them (on the card for data
-    on a CUDA device). A ``mesh`` of one shard runs on its device; more
-    shards raise ``NotImplementedError`` (ROADMAP.md queue 1 step 11)."""
+    on a CUDA device). A ``mesh`` of one shard runs on its device; over
+    more shards both stages run per shard, the PAM stage as the device
+    sweeps on any device type."""
 
     def __init__(self, metric, n_clusters=None, cluster_radius=None,
                  kmedoids_updates=5, random_first_center=False,
@@ -61,9 +62,10 @@ def hybrid(X, distance_method, n_iters=5, n_clusters=None,
            init_centers=None, random_state=None, device=None, mesh=None):
     """K-centers, then ``n_iters`` PAM sweeps from its result. The
     first-center seed is drawn from ``random_state`` before the PAM
-    seed, as in the JAX package. A ``mesh`` of one shard runs on its
-    device; more shards raise ``NotImplementedError``."""
-    device = single_shard_device(mesh, device, 'hybrid')
+    seed, as in the JAX package. ``mesh`` reaches both stages: a mesh of
+    one shard runs on its device, more shards run k-centers and the
+    device sweeps over them."""
+    device, mesh = placement(mesh, device)
     random_state = check_random_state(random_state)
 
     result = _kcenters(
@@ -72,7 +74,7 @@ def hybrid(X, distance_method, n_iters=5, n_clusters=None,
         random_first_center=random_first_center,
         random_state=(random_state.randint(2 ** 31)
                       if random_first_center else None),
-        device=device)
+        device=device, mesh=mesh)
 
     if n_iters <= 0:
         return result
@@ -83,24 +85,27 @@ def hybrid(X, distance_method, n_iters=5, n_clusters=None,
         list(np.asarray(result.center_indices)),
         np.asarray(result.assignments),
         np.asarray(result.distances),
-        random_state=random_state, device=device)
+        random_state=random_state, device=device, mesh=mesh)
 
 
 def hybrid_device(X, metric='rmsd', n_iters=5, n_clusters=None,
-                  dist_cutoff=None, seed=0, bucket_factor=8, device=None):
+                  dist_cutoff=None, seed=0, bucket_factor=8, device=None,
+                  mesh=None):
     """K-hybrid with both stages on the device: the k-centers loop seeds
-    the device PAM sweeps, from frames prepared on the device once, for
-    any named metric.
+    the device PAM sweeps, from frames prepared once, on ``device`` or
+    over the shards of ``mesh`` (the same container serves both stages),
+    for any named metric.
 
     Returns a ClusterResult (centers gathered host-side at the end).
     """
+    device, mesh = placement(mesh, device)
     xyz = X.xyz if hasattr(X, 'xyz') else X
-    prep = engine.prepare_sharded(xyz, metric, device=device)
+    prep = engine.prepare_sharded(xyz, metric, mesh=mesh, device=device)
     res = engine.kcenters_device(prep, metric, n_clusters=n_clusters,
-                                 dist_cutoff=dist_cutoff)
+                                 dist_cutoff=dist_cutoff, mesh=mesh)
     m, d, a = kmedoids_sweeps_device(
         prep, metric, res.assignments, res.distances, res.center_indices,
-        n_sweeps=n_iters, seed=seed, bucket_factor=bucket_factor)
+        n_sweeps=n_iters, seed=seed, bucket_factor=bucket_factor, mesh=mesh)
     return util.ClusterResult(center_indices=list(m), assignments=a,
                               distances=d,
                               centers=util.gather_frames(xyz, m))

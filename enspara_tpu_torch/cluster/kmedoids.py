@@ -4,10 +4,12 @@
 Data on a CUDA device runs the PAM sweeps on the card
 (:func:`enspara_tpu_torch.cluster.engine_kmedoids.
 kmedoids_sweeps_device`: the all-pairs CUDA kernel for 'rmsd', the
-distances of ``ops.distances`` for the feature metrics); data on the CPU,
-explicit proposals and callable metrics run the host PAM path, which
-keeps the reference's exact update (the 3-case mask logic) and its
-random stream.
+distances of ``ops.distances`` for the feature metrics), and so does a
+``mesh`` of more than one shard, over its shards, whatever its device
+type (the JAX package takes the device sweeps only on a TPU; the host
+path has no shards); data on the CPU, explicit proposals and callable
+metrics run the host PAM path, which keeps the reference's exact update
+(the 3-case mask logic) and its random stream.
 """
 
 import logging
@@ -18,13 +20,47 @@ from ..exception import DataInvalid, ImproperlyConfigured
 
 from . import engine, util
 from .util import run_timed
-from ..parallel.mesh import single_shard_device
+from ..parallel.mesh import placement
 from ..util.backend import check_random_state
 from ..util.device import resolve_device
 
 logger = logging.getLogger(__name__)
 
-__all__ = ['KMedoids', 'kmedoids']
+__all__ = ['KMedoids', 'kmedoids', 'ctr_ids_mpi']
+
+
+def ctr_ids_mpi(cluster_center_inds, lengths):
+    """Center indices in the reference's MPI form ``(owner_rank,
+    local_index)`` (reference cluster/kmedoids.py:365; JAX
+    ``kmedoids.py:34-69``), with the trajectories striped over the
+    processes of the ``torch.distributed`` job round-robin (trajectory
+    t on rank t % size, :mod:`enspara_tpu_torch.parallel.io`). A center
+    is a global frame index or a ``(trajectory, frame)`` pair. With one
+    process every center is rank 0's and its local index is the global
+    one."""
+    from .. import ra as ra_mod
+    from ..parallel import io as pio
+
+    _, size = pio._process_info()
+    lengths = np.asarray(lengths)
+    global_inds = ra_mod.RaggedArray(
+        np.arange(int(lengths.sum())), lengths=lengths)
+
+    out = []
+    stripes = {}   # at most `size` distinct stripes; O(n) once each
+    for ind in cluster_center_inds:
+        if hasattr(ind, '__len__'):
+            traj_id, frame_id = int(ind[0]), int(ind[1])
+        else:
+            traj_id, frame_id = ra_mod.where(global_inds == int(ind))
+            traj_id, frame_id = int(traj_id[0]), int(frame_id[0])
+        rank = traj_id % size
+        if rank not in stripes:
+            stripes[rank] = np.concatenate(
+                [np.asarray(r).reshape(-1) for r in global_inds[rank::size]])
+        target = np.asarray(global_inds[traj_id, frame_id]).reshape(-1)[0]
+        out.append((rank, int(np.flatnonzero(stripes[rank] == target)[0])))
+    return out
 
 
 class KMedoids(util.MolecularClusterMixin):
@@ -39,8 +75,9 @@ class KMedoids(util.MolecularClusterMixin):
     device : torch device, optional
         Where to run host (numpy) input; tensors run where they lie.
     mesh : FrameMesh, optional
-        A one-shard mesh runs on its device; more shards raise
-        ``NotImplementedError`` (ROADMAP.md queue 1 step 11).
+        Run over the shards of this mesh instead (not with ``device``):
+        a one-shard mesh runs on its device, more shards run the device
+        sweeps over them.
     """
 
     def __init__(self, metric, n_clusters=None, n_iters=5,
@@ -72,9 +109,10 @@ def kmedoids(X, distance_method, n_clusters=None, n_iters=5,
     Cold start: picks ``n_clusters`` random frames as medoids. Warm
     start: pass ``assignments`` + ``distances`` (center indices are then
     recovered) and/or ``cluster_center_inds``. A ``mesh`` of one shard
-    runs on its device; more shards raise ``NotImplementedError``.
+    runs on its device; over more shards the cold start's assignment and
+    the sweeps run per shard (the device sweeps, on any device type).
     """
-    device = single_shard_device(mesh, device, 'kmedoids')
+    device, mesh = placement(mesh, device)
     if (cluster_center_inds is None and n_clusters is None
             and (assignments is None or distances is None)):
         raise ImproperlyConfigured(
@@ -86,7 +124,7 @@ def kmedoids(X, distance_method, n_clusters=None, n_iters=5,
 
     assignments, distances, cluster_center_inds = _inputs_tree(
         X, metric, n_clusters, assignments, distances,
-        cluster_center_inds, random_state, device)
+        cluster_center_inds, random_state, device, mesh)
 
     # fp32 kernel self-distance noise scales with the data magnitude
     # (QCP: ~sqrt(G*eps32/n_atoms)), so the gate does too
@@ -103,27 +141,29 @@ def kmedoids(X, distance_method, n_clusters=None, n_iters=5,
 
     return _kmedoids_iterations(
         X, metric, n_iters, cluster_center_inds, assignments, distances,
-        proposals=proposals, random_state=random_state, device=device)
+        proposals=proposals, random_state=random_state, device=device,
+        mesh=mesh)
 
 
 def _xyz(X):
     return X.xyz if hasattr(X, 'xyz') else X
 
 
-def _assign_to_inds(X, metric, center_inds, device=None):
+def _assign_to_inds(X, metric, center_inds, device=None, mesh=None):
     """Assign every frame to the frames at ``center_inds``: the batched
-    device assignment for named metrics, the host loop for callables."""
+    device assignment for named metrics (per shard over ``mesh``), the
+    host loop for callables."""
     name = util._metric_name(metric)
     if name is not None:
         xyz = _xyz(X)
         return engine.assign_device(xyz, xyz[np.asarray(center_inds)], name,
-                                    device=device)
+                                    device=device, mesh=mesh)
     return util.assign_to_nearest_center(
         X, [X[i] for i in center_inds], metric)
 
 
 def _inputs_tree(X, metric, n_clusters, assignments, distances,
-                 cluster_center_inds, random_state, device=None):
+                 cluster_center_inds, random_state, device=None, mesh=None):
     """Resolve the three warm-start combinations into a consistent
     ``(assignments, distances, center_inds)`` triple."""
     if (cluster_center_inds is None and assignments is None
@@ -131,37 +171,41 @@ def _inputs_tree(X, metric, n_clusters, assignments, distances,
         cluster_center_inds = random_state.choice(
             len(X), size=n_clusters, replace=False)
         assignments, distances = _assign_to_inds(
-            X, metric, cluster_center_inds, device)
+            X, metric, cluster_center_inds, device, mesh)
     elif cluster_center_inds is None:
         cluster_center_inds = util.find_cluster_centers(
             assignments, distances)
     elif assignments is None or distances is None:
         assignments, distances = _assign_to_inds(
-            X, metric, cluster_center_inds, device)
+            X, metric, cluster_center_inds, device, mesh)
     return (np.asarray(assignments), np.asarray(distances),
             list(np.asarray(cluster_center_inds)))
 
 
 def _kmedoids_iterations(X, metric, n_iters, cluster_center_inds,
                          assignments, distances, proposals=None,
-                         random_state=None, backend='auto', device=None):
+                         random_state=None, backend='auto', device=None,
+                         mesh=None):
     """``n_iters`` PAM sweeps from a warm start.
 
     ``backend='auto'`` runs the sweeps on the device when the data is on
-    a CUDA device (a CUDA tensor, or host data with a CUDA ``device``),
-    the metric is a named one and no explicit proposals were given; the host
-    path runs otherwise or with ``backend='host'``. The two draw
-    proposals from different generators, so they agree in distribution,
-    not bit for bit.
+    a CUDA device (a CUDA tensor, or host data with a CUDA ``device``)
+    or ``mesh`` has more than one shard (on any device type), the metric
+    is a named one and no explicit proposals were given; the host path
+    runs otherwise (on the mesh's lead device) or with
+    ``backend='host'``. The two draw proposals from different
+    generators, so they agree in distribution, not bit for bit.
     """
     if backend not in ('auto', 'host', 'device'):
         raise DataInvalid("backend must be 'auto', 'host' or "
                           "'device', got %r" % (backend,))
+    device, mesh = placement(mesh, device)
     metric_name = util._metric_name(metric)
-    on_cuda = resolve_device(_xyz(X), device).type == 'cuda'
+    on_device = mesh is not None or \
+        resolve_device(_xyz(X), device).type == 'cuda'
     use_device = (backend == 'device'
                   or (backend == 'auto' and proposals is None
-                      and metric_name is not None and on_cuda))
+                      and metric_name is not None and on_device))
     if use_device and metric_name is not None:
         from .engine_kmedoids import kmedoids_sweeps_device
 
@@ -170,10 +214,13 @@ def _kmedoids_iterations(X, metric, n_iters, cluster_center_inds,
             _xyz(X), metric_name, np.asarray(assignments),
             np.asarray(distances, dtype=np.float64),
             np.asarray(cluster_center_inds),
-            n_sweeps=n_iters, seed=int(rs.randint(2 ** 31)), device=device)
+            n_sweeps=n_iters, seed=int(rs.randint(2 ** 31)), device=device,
+            mesh=mesh)
         return util.ClusterResult(
             center_indices=list(m), assignments=a, distances=d,
             centers=util.gather_frames(X, m))
+    if mesh is not None:
+        device = mesh.lead
 
     result = util.ClusterResult(
         center_indices=cluster_center_inds,

@@ -4,5 +4,5 @@ one card (virtual shards), several cards, or several processes over
 
 from .mesh import (frame_mesh, shard_frames, replicated, n_devices,  # noqa: F401
                    initialize_distributed, FRAME_AXIS, FrameMesh,
-                   host_fetch)
+                   host_fetch, job_mesh, placement)
 from . import ops  # noqa: F401

@@ -14,7 +14,12 @@ When the job spans processes, the mesh also carries a
 number of shards, and process ``r``'s shards are the global shards
 ``r*n_local_shards ..``. Collectives reduce over the local shards with
 torch ops on the lead device (``devices[0]``), then over the group with
-``torch.distributed`` (gloo for CPU shards, NCCL for CUDA ones).
+``torch.distributed``. Over a gloo group a CUDA tensor crosses through
+host memory: the mesh copies it to the host, runs the collective there
+and copies the result back (gloo does not take CUDA tensors for every
+collective). :func:`job_mesh` picks the group: NCCL when every process
+leads its shards from a card of its own, gloo otherwise (CPU shards, or
+processes that share a card, which NCCL refuses).
 
 Multi-process jobs call :func:`initialize_distributed` first. Unlike the
 JAX package, small jobs are not rerouted to the CPU: a mesh of CUDA
@@ -31,7 +36,7 @@ FRAME_AXIS = 'frames'
 __all__ = ['FRAME_AXIS', 'FrameMesh', 'frame_mesh', 'n_devices',
            'pad_to_multiple', 'shard_frames', 'replicated', 'host_fetch',
            'initialize_distributed', 'install_abort_excepthook',
-           'single_shard_device', 'mesh_platform']
+           'job_mesh', 'placement', 'mesh_platform']
 
 
 def _world_group():
@@ -116,13 +121,24 @@ class FrameMesh:
 
     # -- collectives ----------------------------------------------------
 
+    def _staged(self, t):
+        """Whether a collective on ``t`` crosses through host memory: a
+        CUDA tensor over a gloo group."""
+        import torch.distributed as dist
+        return t.is_cuda and dist.get_backend(self.group) == 'gloo'
+
     def all_reduce(self, t, op='sum'):
         """Reduce ``t`` (on the lead device) in place over the processes;
         no-op for a single process. Returns ``t``."""
         if self.spans_processes:
             import torch.distributed as dist
             ops = {'sum': dist.ReduceOp.SUM, 'max': dist.ReduceOp.MAX}
-            dist.all_reduce(t, op=ops[op], group=self.group)
+            if self._staged(t):
+                host = t.cpu()
+                dist.all_reduce(host, op=ops[op], group=self.group)
+                t.copy_(host)
+            else:
+                dist.all_reduce(t, op=ops[op], group=self.group)
         return t
 
     def all_gather(self, t, dim=0):
@@ -132,10 +148,12 @@ class FrameMesh:
         if not self.spans_processes:
             return t
         import torch.distributed as dist
-        t = t.contiguous()
-        parts = [torch.empty_like(t) for _ in range(self.process_count)]
-        dist.all_gather(parts, t, group=self.group)
-        return torch.cat(parts, dim=dim)
+        staged = self._staged(t)
+        src = t.cpu() if staged else t.contiguous()
+        parts = [torch.empty_like(src) for _ in range(self.process_count)]
+        dist.all_gather(parts, src, group=self.group)
+        out = torch.cat(parts, dim=dim)
+        return out.to(t.device) if staged else out
 
     def reduce(self, tensors, op='sum'):
         """Reduce one same-shaped tensor per local shard: over the local
@@ -221,19 +239,41 @@ def frame_mesh(n=None, devices=None):
     return FrameMesh(devices, _world_group())
 
 
-def single_shard_device(mesh, device, what):
-    """Where ``what``, which does not run over shards yet, runs:
-    ``device`` without a mesh, the device of a one-shard mesh. A mesh of
-    more shards raises ``NotImplementedError``."""
+def job_mesh(n=None):
+    """The frame mesh of a multi-process job, after
+    :func:`initialize_distributed` joined it over gloo: ``frame_mesh(n)``
+    (this process's visible cards, or ``n`` CPU shards), whose
+    collectives run over NCCL when its shards are CUDA devices and every
+    process's lead card is a card of its own (by UUID), and over the
+    gloo world group otherwise: CPU shards, or processes that share a
+    card, which NCCL refuses. Every process takes the same decision, so
+    every process creates the NCCL group or none does."""
+    mesh = frame_mesh(n)
+    if mesh.group is None or mesh.lead.type != 'cuda':
+        return mesh
+    import torch.distributed as dist
+    uuids = [None] * mesh.process_count
+    dist.all_gather_object(
+        uuids, str(torch.cuda.get_device_properties(mesh.lead).uuid),
+        group=mesh.group)
+    if len(set(uuids)) < len(uuids):
+        return mesh
+    torch.cuda.set_device(mesh.lead)
+    return FrameMesh(mesh.devices, dist.new_group(backend='nccl'))
+
+
+def placement(mesh, device):
+    """``(device, mesh)`` for a function that takes either: ``device``
+    without a mesh, the device of a one-shard mesh, or the mesh itself
+    when it has more shards (``device`` then None). Both given raise
+    ``ValueError``."""
     if mesh is None:
-        return device
-    if mesh.size > 1:
-        raise NotImplementedError(
-            '%s over a mesh of %d shards: the PAM sweeps over shards are '
-            'still to port (ROADMAP.md queue 1 step 11)' % (what, mesh.size))
+        return device, None
     if device is not None:
         raise ValueError('pass device= or mesh=, not both')
-    return mesh.devices[0]
+    if mesh.size == 1:
+        return mesh.devices[0], None
+    return None, mesh
 
 
 def mesh_platform(mesh):

@@ -12,9 +12,12 @@ reference (mpi4py)                here
 allreduce(MAX) striped max        ``striped_max``
 allreduce(SUM) striped mean       ``striped_mean`` (sums and counts)
 allgather of local argmax/max     ``global_argmax`` (ties go to the
-                                  smallest global index: np.argmax)
+                                  smallest global index: np.argmax;
+                                  also row by row of a block)
 Bcast frame from owner rank       ``distribute_frame`` (owner-masked
-                                  sum, dtype kept)
+                                  sum, dtype kept); ``distribute_frames``
+                                  for a vector of global indices, in
+                                  one collective
 ================================  =====================================
 
 Host level, by the reference's names (``striped_array_max``,
@@ -32,7 +35,8 @@ import torch
 from .io import _process_info as _proc_info
 
 __all__ = ['striped_max', 'striped_mean', 'global_argmax',
-           'distribute_frame', 'local_shard_bounds',
+           'distribute_frame', 'distribute_frames', 'owned_rows',
+           'local_shard_bounds',
            'striped_array_max', 'striped_array_mean',
            'assemble_striped_array', 'assemble_striped_ragged_array',
            'convert_local_indices', 'randind']
@@ -67,19 +71,52 @@ def striped_mean(xs, mesh, weights=None):
 
 def global_argmax(xs, mesh):
     """``(value, global index)`` of the global max of a frame-sharded
-    vector, ties to the smallest global index, so results equal the
-    serial ``np.argmax``. Both are 0-d tensors on the lead device."""
+    array along its frame axis (the first), ties to the smallest global
+    index, so results equal the serial ``np.argmax``. For per-shard
+    ``(n_local, *batch)`` tensors each column of the batch is reduced on
+    its own (the sampling argmax of a PAM proposal block). Both results
+    have the batch shape (0-d for vectors) and lie on the lead device."""
     n_local = xs[0].shape[0]
     vals, args = [], []
     for s, x in enumerate(xs):
-        la = torch.argmax(x)
-        vals.append(x[la].to(mesh.lead))
+        la = torch.argmax(x, dim=0)
+        vals.append(x.gather(0, la.unsqueeze(0))[0].to(mesh.lead))
         args.append((la + local_shard_bounds(
             n_local, mesh.first_shard + s)[0]).to(mesh.lead))
     vals = mesh.all_gather(torch.stack(vals))
     args = mesh.all_gather(torch.stack(args))
-    best = vals.max()
-    return best, torch.where(vals == best, args, _IMAX).min()
+    best = vals.amax(0)
+    return best, torch.where(vals == best, args, _IMAX).amin(0)
+
+
+def owned_rows(global_indices, n_local, shard):
+    """``(local index, owned)`` of global frame indices on shard
+    ``shard`` under contiguous block striping: the local index clamped
+    into the shard, and whether the shard holds the frame."""
+    start, stop = local_shard_bounds(n_local, shard)
+    owned = (global_indices >= start) & (global_indices < stop)
+    return (global_indices - start).clamp(0, n_local - 1), owned
+
+
+def distribute_frames(xs, global_indices, mesh, dim=0):
+    """Frames ``global_indices`` (a 1-D index vector) of a frame-sharded
+    array on every shard, along ``dim`` in the order of the indices:
+    each shard picks the frames it owns and zeros for the rest, and one
+    owner-masked sum over the mesh completes them (the reference's Bcast
+    from the owner, for the whole vector at once; the dtype is kept).
+    Returns one tensor per local shard, on its device."""
+    n_local = xs[0].shape[dim]
+    parts = []
+    for s, x in enumerate(xs):
+        gi = torch.as_tensor(global_indices, device=x.device).long()
+        li, own = owned_rows(gi, n_local, mesh.first_shard + s)
+        picked = x.index_select(dim, li)
+        shape = [1] * picked.ndim
+        shape[dim] = -1
+        parts.append(torch.where(own.view(shape), picked,
+                                 torch.zeros_like(picked)))
+    out = mesh.reduce(parts)
+    return [out.to(d) for d in mesh.devices]
 
 
 def distribute_frame(xs, global_index, mesh):
@@ -87,16 +124,8 @@ def distribute_frame(xs, global_index, mesh):
     (reference mpi/ops.py:169, a Bcast from the owner): an owner-masked
     sum that keeps the input's dtype. Returns one tensor per local
     shard, on its device."""
-    n_local = xs[0].shape[0]
-    parts = []
-    for s, x in enumerate(xs):
-        start, stop = local_shard_bounds(n_local, mesh.first_shard + s)
-        gi = torch.as_tensor(global_index, device=x.device).reshape(1)
-        row = x.index_select(0, (gi - start).clamp(0, n_local - 1))[0]
-        owned = (gi >= start) & (gi < stop)
-        parts.append(torch.where(owned, row, torch.zeros_like(row)))
-    row = mesh.reduce(parts)
-    return [row.to(d) for d in mesh.devices]
+    gi = torch.as_tensor(global_index).reshape(1)
+    return [r[0] for r in distribute_frames(xs, gi, mesh)]
 
 
 # ---------------------------------------------------------------------

@@ -218,8 +218,12 @@ def test_cluster_cli_features_and_multihost_raise(tmp_path, cpu_env,
     with pytest.raises(ImproperlyConfigured, match='not compatible'):
         cluster.process_command_line(argv + ['--cluster-distance', 'rmsd'])
     argv += ['--cluster-distance', 'euclidean']
+    # multi-process mode needs the whole variable triple
     monkeypatch.setenv('ENSPARA_TPU_COORDINATOR', 'localhost:1234')
-    with pytest.raises(ImproperlyConfigured, match='step 11'):
+    monkeypatch.delenv('ENSPARA_TPU_NUM_PROCESSES', raising=False)
+    monkeypatch.setenv('ENSPARA_TPU_PROCESS_ID', '0')
+    with pytest.raises(ImproperlyConfigured,
+                       match='also needs ENSPARA_TPU_NUM_PROCESSES'):
         cluster.main(argv)
 
 

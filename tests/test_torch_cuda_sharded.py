@@ -8,18 +8,19 @@ The ``cuda`` tests skip without a card. They hold kernel 3
 ``tmax``, ``(lmax, largmax)`` and ``skipcnt`` against what its own output
 distances and the skip rule give, the two kernels bit for bit against
 each other when nothing skips, and the mesh paths (the sharded loop,
-sharded assignment, sharded counts, lag-sharded timescales) on four
-virtual shards of one card against the same on the CPU or on one device.
+sharded assignment, sharded counts, lag-sharded timescales, the PAM
+sweeps with kernel 5 on every shard) on four virtual shards of one card
+against the same on the CPU or on one device.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from enspara_tpu_torch.cluster import engine
+from enspara_tpu_torch.cluster import engine, engine_kmedoids
 from enspara_tpu_torch.msm import (assigns_to_counts_sharded,
                                    implied_timescales_batched)
-from enspara_tpu_torch.ops import kcenters_step, qcp_update
+from enspara_tpu_torch.ops import kcenters_step, qcp_matrix, qcp_update
 from enspara_tpu_torch.parallel import FrameMesh
 
 from test_torch_port import assert_rmsd_close, basin_data, fresh_arrays
@@ -195,3 +196,39 @@ def test_cuda_mesh_paths_match_one_device(cuda):
     shrd = implied_timescales_batched(a, lags, n_times=5, mesh=mesh)
     assert shrd.shape == (5, 5)
     np.testing.assert_array_equal(shrd, base)
+
+
+@pytest.mark.cuda
+def test_cuda_sharded_pam_matches_cpu(cuda, monkeypatch):
+    """The PAM sweeps over four virtual shards of the card equal the same
+    sweeps over four CPU shards (plain versions) and on the card alone,
+    from the same random bits; kernel 5 runs on every shard's blocks
+    (a multiple of four launches) and never on the CPU shards."""
+    X = basin_data(np.random.default_rng(6), 6_000, 16, n_basins=80,
+                   noise=0.1)
+    seed = engine.kcenters_device_fused(X, n_clusters=60, device=cuda)
+    real = engine_kmedoids.sweep_bits
+
+    def cpu_bits(s, n_sweeps, n, device):
+        for b in real(s, n_sweeps, n, 'cpu'):
+            yield b.to(device)
+    monkeypatch.setattr(engine_kmedoids, 'sweep_bits', cpu_bits)
+    out = {}
+    for name, kw in (('cpu', dict(mesh=FrameMesh(['cpu'] * 4))),
+                     ('mesh', dict(mesh=FrameMesh([cuda] * 4))),
+                     ('one', dict(device=cuda))):
+        q0 = qcp_matrix.qcp_rmsd_matrix_kernel.n_launches
+        res = engine_kmedoids.kmedoids_sweeps_device(
+            X, 'rmsd', seed.assignments, seed.distances, seed.center_indices,
+            n_sweeps=2, seed=5, **kw)
+        torch.cuda.synchronize()
+        out[name] = res, qcp_matrix.qcp_rmsd_matrix_kernel.n_launches - q0
+    (rc, lc), (rm, lm), (r1, l1) = out.values()
+    assert lc == 0 and l1 > 0 and lm > 0 and lm % 4 == 0
+    for m, d, a in (rm, r1):
+        np.testing.assert_array_equal(m, rc[0])
+        np.testing.assert_array_equal(a, rc[2])
+        assert_rmsd_close(d, rc[1], 2 * float(
+            ((X - X.mean(1, keepdims=True)) ** 2).sum((1, 2)).max()), 16)
+    assert not np.array_equal(rc[0], seed.center_indices)
+    assert np.mean(rm[1] ** 2) < np.mean(seed.distances ** 2)

@@ -13,6 +13,8 @@ equal (tie-free data), distances on the msd bar of
 eigenvalues within 1e-4.
 """
 
+import importlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -32,7 +34,8 @@ from enspara_tpu.parallel.mesh import FRAME_AXIS, P
 from enspara_tpu.parallel.mesh import frame_mesh as jax_frame_mesh
 
 from enspara_tpu_torch import convert, exception
-from enspara_tpu_torch.cluster import engine, kcenters, kmedoids
+from enspara_tpu_torch.cluster import (engine, engine_kmedoids, kcenters,
+                                       kmedoids)
 from enspara_tpu_torch.msm import (assigns_to_counts,
                                    assigns_to_counts_sharded,
                                    implied_timescales_batched)
@@ -304,7 +307,8 @@ def test_batched_timescales_lag_sharded():
 
 def test_shard_count_mismatch_raises():
     """Prepared frames run only on a mesh of their shard count
-    (engine.py:927-933); the PAM sweeps over shards are still to port."""
+    (engine.py:927-933), in the PAM sweeps as in k-centers; kmedoids
+    over a 2-shard mesh runs the sweeps over it and equals one device."""
     X = np.random.default_rng(0).normal(size=(300, 6, 3)).astype(np.float32)
     prep4 = engine.prepare_rmsd_frames(X, tile=32, mesh=_cpu_mesh(4))
     assert prep4.n_shards == 4 and prep4.n_local * 4 % (32 * 4) == 0
@@ -313,10 +317,30 @@ def test_shard_count_mismatch_raises():
                     (one, _cpu_mesh(2))):
         with pytest.raises(ValueError, match='laid out for'):
             engine.kcenters_device_fused(x, n_clusters=4, mesh=mesh)
+        with pytest.raises(ValueError, match='laid out for'):
+            engine_kmedoids.kmedoids_sweeps_device(
+                x, 'rmsd', np.zeros(300), np.zeros(300), [0, 1, 2, 3],
+                mesh=mesh)
     with pytest.raises(ValueError, match='laid out for'):
         engine.assign_device(prep4, X[:2], 'rmsd', mesh=_cpu_mesh(2))
-    with pytest.raises(NotImplementedError, match='step 11'):
-        kmedoids(X, 'rmsd', n_clusters=4, mesh=_cpu_mesh(2))
+    # half the scale: the cold start's warm-start gate (1e-3) refuses the
+    # fp32 self-distances of unit-scale random frames on one device too
+    Xk = X / 2
+    got = kmedoids(Xk, 'rmsd', n_clusters=4, random_state=1,
+                   mesh=_cpu_mesh(2))
+    # the one-device call of the same sweeps: the cold start's draw and
+    # assignment, then the device sweeps (the CPU's default is the host
+    # path, which has no shards)
+    rs = np.random.RandomState(1)
+    inds = rs.choice(len(X), size=4, replace=False)
+    a, d = engine.assign_device(Xk, Xk[inds], 'rmsd', device='cpu')
+    ref = importlib.import_module(
+        'enspara_tpu_torch.cluster.kmedoids')._kmedoids_iterations(
+        Xk, 'rmsd', 5, list(inds), a, d, random_state=rs, backend='device',
+        device='cpu')
+    np.testing.assert_array_equal(got.center_indices, ref.center_indices)
+    np.testing.assert_array_equal(got.assignments, ref.assignments)
+    assert not np.array_equal(got.center_indices, inds)
     res = engine.kcenters_device_fused(prep4, n_clusters=4,
                                        mesh=_cpu_mesh(4))
     assert res.n_found == 4
