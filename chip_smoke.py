@@ -161,7 +161,22 @@ drives these paths:
      1000 --subsample 1 --random-state 0: both processes bit for bit an
      in-process FrameMesh((cuda:0,) * 2) run, rank 0 alone writing the
      center indices and structures (the .h5 write left out), --subsample
-     2 refused, stage seconds a process.
+     2 refused, stage seconds a process;
+17.  mesh=None, the JAX package's default mesh: (a) frame_mesh() holds
+     every visible card; kcenters on phase 2's frames (from the host),
+     assign_device of them to its centers, KHybrid on phase 5's
+     subsample and the cluster CLI's fit of phase 5, all on frames of
+     fewer than SMALL_JOB_FEATURES features, and the implied CLI on phase 5's labels and
+     collect_cards of phase 12 (phase 12's own run), each with no mesh=
+     and no device=, bit for bit the same calls pinned to
+     device='cuda:0' (with several cards, the last two to as many
+     virtual shards of cuda:0), in the order default, pinned, pinned,
+     default; kernel 1's launches are phase 2's and no kernel 3 or 4
+     runs; with several cards and the rule off, the default kcenters
+     runs kernel 4 over them; a 501-frame job stays on the current card;
+     (b) with two or more cards, phase 9 and 16a-b over frame_mesh(),
+     bit for bit the same on virtual shards of cuda:0 (one card: a line
+     says this half did not run).
 
 Every time printed was taken on the card's machine (device stages timed
 with CUDA events or to a synchronize, host stages on its host), warm
@@ -236,7 +251,9 @@ from enspara_tpu_torch.ops.kcenters_step import (
 from enspara_tpu_torch.ops import qcp_matrix
 from enspara_tpu_torch.ops.qcp_update import (kcenters_iteration,
                                               kcenters_iteration_plain)
-from enspara_tpu_torch.parallel import FrameMesh
+from enspara_tpu_torch.cards.featurizers import RotamerFeaturizer
+from enspara_tpu_torch.parallel import FrameMesh, frame_mesh
+from enspara_tpu_torch.parallel import mesh as pmesh
 from enspara_tpu_torch.ops.qcp import rmsd_from_S_components_unrolled
 from enspara_tpu_torch.ops.sparse import dense_on_device
 from enspara_tpu_torch.tpt import committors, mfpts, net_fluxes, paths
@@ -701,12 +718,14 @@ class Stage:
         self.module, self.name = module, name
         self.fn = getattr(module, name)
         self.seconds, self.calls, self.qcp, self.kc = 0.0, 0, 0, 0
+        self.k4 = 0
 
     def __enter__(self):
         def wrapped(*a, **kw):
             torch.cuda.synchronize()
             q0 = qcp_matrix.qcp_rmsd_matrix_kernel.n_launches
             k0 = kcenters_chunk.n_launches
+            s0 = kcenters_iteration_skip.n_launches
             t = time.perf_counter()
             self.result = self.fn(*a, **kw)
             torch.cuda.synchronize()
@@ -714,6 +733,7 @@ class Stage:
             self.calls += 1
             self.qcp += qcp_matrix.qcp_rmsd_matrix_kernel.n_launches - q0
             self.kc += kcenters_chunk.n_launches - k0
+            self.k4 += kcenters_iteration_skip.n_launches - s0
             return self.result
         setattr(self.module, self.name, wrapped)
         return self
@@ -754,7 +774,8 @@ def reassign_path(device, card):
         t_load = time.perf_counter() - t
         with Stage(hybrid_mod, '_kcenters') as kc, \
                 Stage(hybrid_mod, '_kmedoids_iterations') as pam:
-            clustering = cluster_app.fit(args, data, device)
+            # the CLI's own placement: the library's default (phase 17)
+            clustering = cluster_app.fit(args, data)
         syncs = engine_kmedoids._pam_sweeps.n_host_syncs
         res = clustering.result_
         result = res.partition(lengths)
@@ -773,11 +794,17 @@ def reassign_path(device, card):
         t = time.perf_counter()
         with Stage(engine, 'assign_device') as asg:
             r_assig, r_dist = reassign_app.run(
-                rargs, reassign_app.load_centers(rargs), device)
+                rargs, reassign_app.load_centers(rargs))
         t_reassign = time.perf_counter() - t
         launches = {'qcp_matrix': qcp_matrix.qcp_rmsd_matrix_kernel.n_launches,
                     'kcenters_step': kcenters_chunk.n_launches,
-                    'pam_seconds': pam.seconds, 'pam_syncs': syncs}
+                    'pam_seconds': pam.seconds, 'pam_syncs': syncs,
+                    # for phase 17: the fit, its input and its launches
+                    'args': args, 'data': data, 'result': res,
+                    'fit_s': kc.seconds + pam.seconds,
+                    'fit_kc': kc.kc, 'fit_qcp': pam.qcp,
+                    'fit_k34': kcenters_iteration_skip.n_launches
+                    + kcenters_iteration.n_launches}
         check(ell_spmm_kernel.n_launches == 0,
               'cluster -> reassign launched the ell_spmm kernel')
 
@@ -795,7 +822,8 @@ def reassign_path(device, card):
         cost = float(np.mean(res.distances ** 2))
         check(cost <= cost_kc, 'PAM cost %r above k-centers cost %r'
               % (cost, cost_kc))
-        check(kc.kc > 0, 'k-centers launched no kernel')
+        # kernel 1 on one card; kernel 4 over several (the default mesh)
+        check(kc.kc + kc.k4 > 0, 'k-centers launched no kernel')
         check(pam.qcp > 0 and pam.kc == 0,
               'PAM: %d qcp launches, %d k-centers launches'
               % (pam.qcp, pam.kc))
@@ -1418,12 +1446,15 @@ def loop_profile(X, mesh, card):
           flush=True)
 
 
-def sharded_path(device, X, single, t_single, card):
-    """Phase 9: the sharded path through the public entry points on a
-    4-shard mesh of the card, with its checks against phase 2's
-    single-device result ``single`` (cluster seconds ``t_single``).
-    Returns the launches of kernels 3 and 4 on their paths."""
-    mesh = FrameMesh((device,) * N_SHARDS)
+def sharded_path(device, X, single, t_single, card, mesh=None):
+    """Phase 9: the sharded path through the public entry points on
+    ``mesh`` (default: a 4-shard mesh of the card), with its checks
+    against phase 2's single-device result ``single`` (cluster seconds
+    ``t_single``). Returns the launches of kernels 3 and 4 on their
+    paths and, under 'result', the mesh's outputs: center indices,
+    assignments, distances, assign_device's labels and distances, the
+    batched timescales, and the basin data's center indices."""
+    mesh = mesh or FrameMesh((device,) * N_SHARDS)
     Xc2 = (X * X).sum(dim=(1, 2))
     bar = bar_from(2 * float(Xc2.max()), N_ATOMS)
     del Xc2
@@ -1542,7 +1573,7 @@ def sharded_path(device, X, single, t_single, card):
     check(all(np.array_equal(x, y) for x, y in zip(on_b, off_b)),
           'basin data: tri_skip on and off differ')
     check(skipped > 0, 'basin data: no tile visit skipped')
-    visits = on_b.n_found * N_SHARDS * (n_local // engine.TILE)
+    visits = on_b.n_found * mesh.size * (n_local // engine.TILE)
     check(kcenters_chunk.n_launches == 0, 'phase 9 launched kernel 1')
 
     print('sharded path: %d frames x %d atoms on %d shards -> %d centers; '
@@ -1551,11 +1582,11 @@ def sharded_path(device, X, single, t_single, card):
           'float64 numpy; assign_device(mesh=) equal to one device; batched '
           'timescales at lags %s with the mesh equal to those without, '
           'eigenvalues within %.2e of the per-lag solve'
-          % (N_FRAMES, N_ATOMS, N_SHARDS, len(ctr), verdict, rs, r1, LAG,
+          % (N_FRAMES, N_ATOMS, mesh.size, len(ctr), verdict, rs, r1, LAG,
              N_EIGS, eig_err, list(SHARDED_LAGS), its_err))
     print('basin data %d x %d on %d shards -> %d centers: tri_skip on and '
           'off bit-identical, %d of %d tile visits skipped'
-          % (CHECK_FRAMES, N_ATOMS, N_SHARDS, on_b.n_found, skipped, visits))
+          % (CHECK_FRAMES, N_ATOMS, mesh.size, on_b.n_found, skipped, visits))
     print('[%s] sharded: prepare %.4f s; cluster %.4f s (phase 2 single '
           'device %.4f s), tri_skip=False run %.4f s (prepare included); '
           'counts %.4f s; eigsolve %.4f s; assign_device %.4f s (%d qcp '
@@ -1565,7 +1596,9 @@ def sharded_path(device, X, single, t_single, card):
              t_eig, asg.seconds, asg.qcp, t_its, k4_launches,
              k4_launches / N_CLUSTERS, k3_launches), flush=True)
     loop_profile(X, mesh, card)
-    return {'qcp_update': k3_launches, 'kcenters_iteration_skip': k4_launches}
+    return {'qcp_update': k3_launches, 'kcenters_iteration_skip': k4_launches,
+            'result': (ctr, res.assignments, res.distances, a_m, d_m, its_m,
+                       on_b.center_indices)}
 
 
 @contextlib.contextmanager
@@ -2585,7 +2618,9 @@ def weighted_mi_check(device, card):
 
 def cards_cli(top, xyz, card):
     """Phase 12c: `enspara cards` and `enspara entropy` through the
-    dispatcher on the peptide's first frames, by stage."""
+    dispatcher on the peptide's first frames, by stage. Returns the
+    matrices `enspara cards` saved and the trajectories it read (for
+    phase 17)."""
     n_files = CARDS_CLI_FILES
     with tempfile.TemporaryDirectory() as d:
         t = time.perf_counter()
@@ -2645,15 +2680,16 @@ def cards_cli(top, xyz, card):
                     + (t_cards - sum(secs), t_lib, t_ent, ld.seconds,
                        ft.seconds, len(table), table[:, 1].min(),
                        table[:, 1].max())), flush=True)
+    return [saved[k] for k in keys], loaded, t_cards
 
 
 def cards_path(device, card):
     """Phase 12: the CARDS chain on the card, with none of the six kernels
-    launched."""
+    launched. Returns what :func:`cards_cli` returns."""
     reset_launches()
     cards_library(device, card)
     top, xyz = cards_featurize(device, card)
-    cards_cli(top, xyz[:CARDS_CLI_FILES * CARDS_CLI_FRAMES], card)
+    cli = cards_cli(top, xyz[:CARDS_CLI_FILES * CARDS_CLI_FRAMES], card)
     del xyz
     weighted_mi_check(device, card)
     launched = (kcenters_chunk.n_launches,
@@ -2663,6 +2699,7 @@ def cards_path(device, card):
     check(not any(launched), 'phase 12 launched a kernel: %s' % (launched,))
     print('[%s] phase 12 (CARDS) passed; none of the six kernels launched'
           % card, flush=True)
+    return cli
 
 
 def globule(n_res, seed=13, density=GLOB_DENSITY):
@@ -4051,7 +4088,8 @@ def compare_pam(got, ref, bar, what):
 
 def khybrid_mesh_check(X, mesh, device, card, phase5):
     """Phase 16a: KHybrid at phase 5's scale over the mesh and on one
-    device, by stage. Returns kernel 5's launches over the mesh."""
+    device, by stage. Returns kernel 5's launches over the mesh and the
+    mesh's result (medoids, assignments, distances)."""
     bar = bar_from(2.02 * float(np.einsum(
         'nai,nai->n', X - X.mean(1, keepdims=True),
         X - X.mean(1, keepdims=True)).max()), N_ATOMS)
@@ -4071,7 +4109,7 @@ def khybrid_mesh_check(X, mesh, device, card, phase5):
     check(k4_m > 0 and k1_m == 0 and k1_1 > 0 and k4_1 == 0,
           '16a: k-centers launches: mesh kernel 4 %d, kernel 1 %d; one '
           'device kernel 4 %d, kernel 1 %d' % (k4_m, k1_m, k4_1, k1_1))
-    check(pam_m.qcp > 0 and pam_m.qcp % N_SHARDS == 0 and pam_1.qcp > 0,
+    check(pam_m.qcp > 0 and pam_m.qcp % mesh.size == 0 and pam_1.qcp > 0,
           '16a: kernel 5 launches in PAM: mesh %d, one device %d'
           % (pam_m.qcp, pam_1.qcp))
     for r, kc in ((res_m, kc_m), (res_1, kc_1)):
@@ -4088,7 +4126,7 @@ def khybrid_mesh_check(X, mesh, device, card, phase5):
         '16a')
     print('16a KHybrid %d x %d -> %d, 5 sweeps, on %d shards against one '
           'device: k-centers seeds differ at %d centers; PAM %s'
-          % (len(X), N_ATOMS, CLUSTER_K, N_SHARDS, seeds, verdict))
+          % (len(X), N_ATOMS, CLUSTER_K, mesh.size, seeds, verdict))
     print('[%s] 16a KHybrid over the mesh: k-centers %.4f s (%d kernel 4 '
           'launches), PAM %.4f s (%d host syncs, %d kernel 5 launches); one '
           'device: k-centers %.4f s, PAM %.4f s (%d host syncs, %d kernel 5 '
@@ -4096,13 +4134,15 @@ def khybrid_mesh_check(X, mesh, device, card, phase5):
           % (card, kc_m.seconds, k4_m, pam_m.seconds, sy_m, pam_m.qcp,
              kc_1.seconds, pam_1.seconds, sy_1, pam_1.qcp,
              phase5['pam_seconds'], phase5['pam_syncs']), flush=True)
-    return pam_m.qcp
+    return pam_m.qcp, tuple(np.asarray(v) for v in (
+        res_m.center_indices, res_m.assignments, res_m.distances))
 
 
 def sweeps_mesh_check(X, mesh, device, card):
     """Phase 16b: the device sweeps over the mesh at phase 5's full 1M
     frames from a kcenters(mesh=) seed, against one device from the same
-    seed. Returns kernel 5's launches over the mesh."""
+    seed. Returns kernel 5's launches over the mesh and the mesh's result
+    (the seed's centers, then medoids, distances, assignments)."""
     seed = kcenters(X, 'rmsd', n_clusters=CLUSTER_K, mesh=mesh)
     bar = bar_from(2.02 * float(np.einsum(
         'nai,nai->n', X - X.mean(1, keepdims=True),
@@ -4125,7 +4165,7 @@ def sweeps_mesh_check(X, mesh, device, card):
         del prep
         torch.cuda.empty_cache()
     (rm, tm, sm, qm), (r1, t1, s1, q1) = out.values()
-    check(qm > 0 and qm % N_SHARDS == 0 and q1 > 0,
+    check(qm > 0 and qm % mesh.size == 0 and q1 > 0,
           '16b: kernel 5 launches: mesh %d, one device %d' % (qm, q1))
     c0 = pam_cost(seed.distances)
     check(pam_cost(rm[1]) <= c0 and pam_cost(r1[1]) <= c0,
@@ -4134,11 +4174,11 @@ def sweeps_mesh_check(X, mesh, device, card):
     print('16b kmedoids_sweeps_device %d x %d, %d medoids from '
           'kcenters(mesh=), %d sweeps on %d shards against one device: %s; '
           'seed cost %.9g' % (len(X), N_ATOMS, CLUSTER_K, MESH_SWEEPS,
-                              N_SHARDS, verdict, c0))
+                              mesh.size, verdict, c0))
     print('[%s] 16b sweeps over the mesh %.4f s (%d host syncs, %d kernel 5 '
           'launches); one device %.4f s (%d host syncs, %d kernel 5 '
           'launches)' % (card, tm, sm, qm, t1, s1, q1), flush=True)
-    return qm
+    return qm, (np.asarray(seed.center_indices),) + tuple(rm)
 
 
 def _free_port():
@@ -4318,23 +4358,254 @@ def job_check(device, card):
     return stages[0]['qcp']
 
 
+def subsampled(X):
+    """Phase 5's frames at its ``--subsample``: 100,000 of them."""
+    return X.reshape(N_TRJ, TRJ_FRAMES, N_ATOMS, 3)[:, ::SUBSAMPLE] \
+        .reshape(-1, N_ATOMS, 3)
+
+
 def mesh_pam_path(device, card, phase5):
     """Phase 16: the PAM sweeps over a 4-shard mesh of the card and the
-    multi-process cluster CLI. Returns kernel 5's launches by part."""
+    multi-process cluster CLI. Returns kernel 5's launches by part and
+    the mesh's results of 16a and 16b."""
     mesh = FrameMesh((device,) * N_SHARDS)
     X = phase5_data()
-    sub = X.reshape(N_TRJ, TRJ_FRAMES, N_ATOMS, 3)[:, ::SUBSAMPLE] \
-        .reshape(-1, N_ATOMS, 3)
-    launches = {'16a': khybrid_mesh_check(sub, mesh, device, card, phase5)}
-    del sub
+    launches, results = {}, {}
+    launches['16a'], results['16a'] = khybrid_mesh_check(
+        subsampled(X), mesh, device, card, phase5)
     torch.cuda.empty_cache()
-    launches['16b'] = sweeps_mesh_check(X, mesh, device, card)
+    launches['16b'], results['16b'] = sweeps_mesh_check(X, mesh, device,
+                                                        card)
     del X
     torch.cuda.empty_cache()
     launches['16c'] = job_check(device, card)
     print('[%s] phase 16 (PAM over a mesh, the multi-process CLI) passed'
           % card, flush=True)
-    return launches
+    return launches, results
+
+# phase 17: the small job (the size of the reference's bundled 501-frame
+# system) and its centers
+SMALL_FRAMES, SMALL_K = 501, 10
+
+
+def cards_lines():
+    """Every visible card's name and power limit, as nvidia-smi gives
+    them, joined by '; '."""
+    out = subprocess.run(
+        ['nvidia-smi', '--query-gpu=name,power.limit',
+         '--format=csv,noheader'],
+        capture_output=True, text=True, check=True, timeout=60)
+    return out.stdout.strip().replace('\n', '; ')
+
+
+def launch_counts():
+    return {'k1': kcenters_chunk.n_launches,
+            'k3': kcenters_iteration.n_launches,
+            'k4': kcenters_iteration_skip.n_launches,
+            'k5': qcp_matrix.qcp_rmsd_matrix_kernel.n_launches,
+            'k6': ell_spmm_kernel.n_launches}
+
+
+def same_bits(got, ref, what):
+    """Every array of ``got`` equal to ``ref``'s, NaN where NaN."""
+    check(len(got) == len(ref), '%s: %d results vs %d'
+          % (what, len(got), len(ref)))
+    for k, (g, r) in enumerate(zip(got, ref)):
+        g, r = np.asarray(g), np.asarray(r)
+        check(g.shape == r.shape and np.array_equal(
+            g, r, equal_nan=g.dtype.kind == 'f'),
+            '%s: result %d differs from the pinned run' % (what, k))
+
+
+def _ctr(r):
+    return (np.asarray(r.center_indices), np.asarray(r.assignments),
+            np.asarray(r.distances))
+
+
+def default_mesh_path(device, card, single, t_single, phase2_launches,
+                      phase5, labels, cards12, virtual):
+    """Phase 17: ``mesh=None`` spans every visible card, as the JAX
+    package's default mesh spans every device, but for clustering jobs
+    on frames of fewer than ``SMALL_JOB_FEATURES`` features, which stay
+    on the current card.
+
+    (a) ``frame_mesh()`` holds every visible card; the public entry
+    points with no ``mesh=`` and no ``device=`` (kcenters on phase 2's
+    frames from the host, assign_device of them, KHybrid on phase 5's
+    subsample, the cluster CLI's fit of phase 5: all below the
+    threshold; the implied CLI on phase 10's labels and collect_cards of
+    phase 12, which take every card whatever the size) equal, bit for
+    bit, the same calls pinned to ``device='cuda:0'`` (with several
+    cards, the last two to a mesh of as many virtual shards of cuda:0,
+    the same layout). Each pair runs in the order default, pinned,
+    pinned, default. The clusterings' launches are the one-device
+    phases' (kernel 1's 1040, no kernel 3 or 4) on any count of cards.
+    With several cards, the default kcenters with the rule off runs
+    over them (kernel 4) and equals the virtual shards. A 501-frame job
+    stays on the current card.
+    (b) With two or more cards, phase 9's sharded path and phase 16a-b
+    over ``frame_mesh()``, each bit for bit the same mesh of virtual
+    shards (``virtual``: phase 9's and 16's results on 4 of them)."""
+    n_cards = torch.cuda.device_count()
+    mesh = frame_mesh()
+    check(mesh.size == n_cards and mesh.devices == tuple(
+        torch.device('cuda', k) for k in range(n_cards)),
+        'frame_mesh() is %s with %d cards visible' % (mesh, n_cards))
+    cuda0 = mesh.devices[0]
+    one = ({'device': cuda0}, "device='cuda:0'")
+    cards = one if n_cards == 1 else (
+        {'mesh': FrameMesh((cuda0,) * n_cards)},
+        'FrameMesh((cuda:0,) * %d)' % n_cards)
+    lines = []
+
+    def launches(c):
+        return ', '.join('%s %d' % kv for kv in c.items() if kv[1])
+
+    def both(what, fn, pin, first=None, repeat=True):
+        """``fn()`` and ``fn(**pin[0])`` in the order default, pinned,
+        pinned, default (``repeat=False``: one pinned run), each timed
+        to a synchronize with its launches, after ``first`` (an earlier
+        default run's result, seconds and launches) when given; every
+        result bit for bit the first pinned one's. Returns the runs by
+        placement."""
+        runs = {'default': [first] if first is not None else [],
+                'pinned': []}
+        order = ('default', 'pinned', 'pinned', 'default') if repeat \
+            else ('pinned',)
+        for name in order:
+            kw = {} if name == 'default' else pin[0]
+            reset_launches()
+            for k in range(n_cards):
+                torch.cuda.synchronize(k)
+            t = time.perf_counter()
+            res = fn(**kw)
+            for k in range(n_cards):
+                torch.cuda.synchronize(k)
+            runs[name].append((res, time.perf_counter() - t,
+                               launch_counts()))
+        ref = runs['pinned'][0][0]
+        for res, _, _ in runs['default'] + runs['pinned'][1:]:
+            same_bits(res, ref, what)
+        lines.append('%s %s s (%s) = %s %s s (%s)' % (
+            what, ' / '.join('%.4f' % r[1] for r in runs['default']),
+            launches(runs['default'][-1][2]), pin[1],
+            ' / '.join('%.4f' % r[1] for r in runs['pinned']),
+            launches(runs['pinned'][0][2])))
+        return runs
+
+    # -- (a) --------------------------------------------------------------
+    frames = random_walk(device)
+    Xh = frames.cpu().numpy()
+    kc = both('kcenters 1M x 64 -> %d' % N_CLUSTERS, lambda **kw: _ctr(
+        kcenters(Xh, 'rmsd', n_clusters=N_CLUSTERS, **kw)), one)
+    ctr = kc['pinned'][0][0][0]
+    both('assign_device 1M x 64 to %d centers' % N_CLUSTERS,
+         lambda **kw: engine.assign_device(Xh, Xh[ctr], 'rmsd', **kw), one)
+    if n_cards > 1:
+        # the rule off: the same default over every card
+        rule, pmesh.SMALL_JOB_FEATURES = pmesh.SMALL_JOB_FEATURES, 0.0
+        try:
+            over = both('kcenters 1M x 64 -> %d, SMALL_JOB_FEATURES 0'
+                        % N_CLUSTERS, lambda **kw: _ctr(kcenters(
+                            Xh, 'rmsd', n_clusters=N_CLUSTERS, **kw)),
+                        cards)
+        finally:
+            pmesh.SMALL_JOB_FEATURES = rule
+        k = over['default'][-1][2]
+        check(k['k4'] > 0 and k['k1'] == 0, 'default kcenters over %d '
+              'cards, the rule off: kernel 4 %d, kernel 1 %d'
+              % (n_cards, k['k4'], k['k1']))
+    del Xh
+    data = phase5['data']
+    kh = both('KHybrid %d x %d -> %d' % (len(data.xyz), N_ATOMS, CLUSTER_K),
+              lambda **kw: _ctr(KHybrid('rmsd', n_clusters=CLUSTER_K,
+                                        random_state=0, **kw)
+                                .fit(data).result_), one)
+    fit5 = (_ctr(phase5['result']), phase5['fit_s'],
+            {'k1': phase5['fit_kc'], 'k34': phase5['fit_k34'],
+             'k5': phase5['fit_qcp']})
+    cli = both('the cluster CLI\'s fit (first: phase 5\'s run)',
+               lambda **kw: _ctr(cluster_app.fit(phase5['args'], data,
+                                                 **kw).result_),
+               one, first=fit5)
+    its_args = its_app.process_command_line(
+        ['implied', '--assignments', '(phase 5, in memory)']
+        + list(ITS_FLAGS))
+    both('the implied CLI on phase 5\'s labels',
+         lambda **kw: (its_app.run(labels, its_args, **kw),), cards)
+    saved, loaded, cards12_s = cards12
+    feat = RotamerFeaturizer(buffer_width=15).fit(loaded)
+    both('collect_cards (phase 12\'s whole run; pinned: its matrices)',
+         lambda **kw: cards_matrices(
+             feat.feature_trajectories_, feat.n_feature_states_, **kw),
+         cards, first=(saved, cards12_s, {}), repeat=False)
+    del feat, loaded
+
+    k = kc['default'][-1][2]
+    check(k['k1'] == phase2_launches and k['k3'] == k['k4'] == 0,
+          'default kcenters: kernel 1 %d (phase 2: %d), kernel 3 %d, '
+          'kernel 4 %d' % (k['k1'], phase2_launches, k['k3'], k['k4']))
+    for what, runs in (('KHybrid', kh), ('the cluster CLI', cli)):
+        for d in runs['default']:
+            p = runs['pinned'][0][2]
+            d = d[2]
+            check(d['k1'] == p['k1'] > 0 and d['k5'] == p['k5'] > 0 and
+                  not d.get('k3', 0) + d.get('k4', 0) + d.get('k34', 0),
+                  '%s: default %s, pinned %s' % (what, d, p))
+
+    # the small job: the current card, whatever the count of cards
+    small = data.xyz[:SMALL_FRAMES]
+    features = pmesh.job_features(small)
+    check(features < pmesh.SMALL_JOB_FEATURES, 'features %g' % features)
+    reset_launches()
+    with Stage(engine, 'prepare_rmsd_frames') as prep_st:
+        kcenters(small, 'rmsd', n_clusters=SMALL_K)
+    placed = prep_st.result
+    current = torch.device('cuda', torch.cuda.current_device())
+    check(isinstance(placed, engine.PreparedRMSDFrames) and
+          placed.device == current and kcenters_chunk.n_launches > 0 and
+          kcenters_iteration_skip.n_launches == 0,
+          'the %d-frame job was laid out on %s (%s), kernel 1 %d, kernel 4 '
+          '%d launches' % (SMALL_FRAMES, placed.device, type(placed).__name__,
+                           kcenters_chunk.n_launches,
+                           kcenters_iteration_skip.n_launches))
+    print('17a: frame_mesh() holds %d card(s) of %d visible; with no mesh= '
+          'and no device=, each run equals its pinned run bit for bit '
+          '(seconds in the order run): %s; a %d-frame job to %d centers '
+          '(%d features < SMALL_JOB_FEATURES %g) ran on %s, one device, %d '
+          'kernel 1 launches'
+          % (mesh.size, n_cards, '; '.join(lines), SMALL_FRAMES, SMALL_K,
+             features, pmesh.SMALL_JOB_FEATURES, placed.device,
+             kcenters_chunk.n_launches))
+    print('[%s] 17a times above: seconds to a synchronize on this machine'
+          % cards_lines(), flush=True)
+
+    # -- (b) --------------------------------------------------------------
+    if n_cards < 2:
+        print('17b: %d CUDA device visible; the multi-card half (phase 9 '
+              'and 16a-b over frame_mesh()) did not run' % n_cards,
+              flush=True)
+        return
+    on_cards = {'9': sharded_path(device, frames, single, t_single, card,
+                                  mesh=mesh)['result']}
+    X = phase5_data()
+    on_cards['16a'] = khybrid_mesh_check(subsampled(X), mesh, device, card,
+                                         phase5)[1]
+    on_cards['16b'] = sweeps_mesh_check(X, mesh, device, card)[1]
+    if mesh.size != N_SHARDS:
+        vmesh = FrameMesh((device,) * mesh.size)
+        virtual = {
+            '9': sharded_path(device, frames, single, t_single, card,
+                              mesh=vmesh)['result'],
+            '16a': khybrid_mesh_check(subsampled(X), vmesh, device, card,
+                                      phase5)[1],
+            '16b': sweeps_mesh_check(X, vmesh, device, card)[1]}
+    for part in ('9', '16a', '16b'):
+        same_bits(on_cards[part], virtual[part],
+                  'phase %s over %d cards' % (part, n_cards))
+    print('[%s] 17b: phase 9 and 16a-b over frame_mesh(), %d cards, bit for '
+          'bit the same on %d virtual shards of cuda:0 (times above)'
+          % (cards_lines(), n_cards, mesh.size), flush=True)
 
 
 def main():
@@ -4501,7 +4772,7 @@ def main():
     torch.cuda.empty_cache()
 
     # -- 12. the CARDS chain ------------------------------------------------
-    cards_path(device, card)
+    cards12 = cards_path(device, card)
     torch.cuda.empty_cache()
 
     # -- 13. SASA, exposons, RMSF, helix, pockets, the point-cloud route ---
@@ -4517,7 +4788,13 @@ def main():
     torch.cuda.empty_cache()
 
     # -- 16. the PAM sweeps over a mesh, the multi-process cluster CLI -----
-    mesh_pam = mesh_pam_path(device, card, path)
+    mesh_pam, mesh_results = mesh_pam_path(device, card, path)
+    torch.cuda.empty_cache()
+
+    # -- 17. mesh=None: every visible card, the small-job card -------------
+    default_mesh_path(device, card, single, t_single, launches, path, labels,
+                      cards12, dict(mesh_results, **{'9': sharded['result']}))
+    del cards12
     print('launches: north star kcenters_step %d; north star tri_skip=False '
           'kcenters_step_noskip %d; cluster -> reassign kcenters_step %d, '
           'qcp_matrix %d; scale-point eigensolve ell_spmm %d; implied '

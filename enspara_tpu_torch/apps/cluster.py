@@ -18,8 +18,9 @@ already holds a manifest warm-starts ``--algorithm kmedoids`` from it.
 k-centers kernels and ``--locality-sort`` clusters a locality-sorted
 layout (both ``--algorithm kcenters`` by rmsd only, as in the JAX app).
 
-It runs on the CUDA device; ``ENSPARA_TPU_PLATFORM=cpu`` runs it on the
-CPU, where every kernel takes its plain version.
+It runs on every visible card (a small job on the current one), the
+library's default; ``ENSPARA_TPU_PLATFORM=cpu`` runs it on the CPU,
+where every kernel takes its plain version.
 
 Multi-process mode (the reference's ``mpirun -n N cluster ...``): with
 ``ENSPARA_TPU_COORDINATOR=host:port``, ``ENSPARA_TPU_NUM_PROCESSES=N``
@@ -298,11 +299,12 @@ def check_job(args, mesh):
             'yet; reassign separately with the reassign app')
 
 
-def fit(args, data, device, mesh=None):
-    """Build the parsed ``--algorithm``'s estimator on ``device``, or
-    over ``mesh`` when given, and fit it to ``data`` (k-medoids restarts
-    from a ``--checkpoint`` that holds a manifest, or from the
-    ``--init-*`` files)."""
+def fit(args, data, device=None, mesh=None):
+    """Build the parsed ``--algorithm``'s estimator over ``mesh`` when
+    given, else on ``device`` (None: the library's default placement,
+    every visible card, the current card for a small job) and fit it to
+    ``data`` (k-medoids restarts from a ``--checkpoint`` that holds a
+    manifest, or from the ``--init-*`` files)."""
     kwargs = {}
     if args.cluster_iterations is not None:
         if args.Clusterer is KHybrid:
@@ -317,10 +319,10 @@ def fit(args, data, device, mesh=None):
         kwargs['precision'] = args.precision
     if args.locality_sort:
         kwargs['sort'] = 'locality'
-    if mesh is None:
-        kwargs['device'] = device
-    else:
+    if mesh is not None:
         kwargs['mesh'] = mesh
+    elif device is not None:
+        kwargs['device'] = device
     clustering = args.Clusterer(metric=args.cluster_distance,
                                 n_clusters=args.cluster_number, **kwargs)
     if args.Clusterer is KMedoids:
@@ -362,7 +364,9 @@ def write_outputs(args, clustering, lengths, device=None, mesh=None,
     """Write the fitted clustering's outputs (the checkpoint, the center
     indices and structures and, with ``h5``, the ``.h5`` assignments and
     distances, reassigned on ``device`` for ``--subsample`` above 1) on
-    rank 0 of the job alone. Returns whether this process wrote."""
+    rank 0 of the job alone (``device`` None: the library's default
+    placement, or the mesh's lead device). Returns whether this process
+    wrote."""
     if mesh is not None and mesh.process_index != 0:
         return False
     if args.checkpoint:
@@ -390,16 +394,16 @@ def main(argv=None):
     if argv is None:
         argv = sys.argv
     mesh = join_job()          # before anything touches the card
-    device = select_device()   # honors $ENSPARA_TPU_PLATFORM
+    select_device()            # honors $ENSPARA_TPU_PLATFORM
 
     args = process_command_line(argv)
     check_job(args, mesh)
     lengths, data = util.load_trjs_or_features(args)
-    clustering = fit(args, data, device, mesh)
+    clustering = fit(args, data, None, mesh)
     del data
     logger.info('Clustered %s frames into %s clusters in %s seconds.',
                 sum(lengths), len(clustering.centers_), clustering.runtime_)
-    write_outputs(args, clustering, lengths, device, mesh)
+    write_outputs(args, clustering, lengths, mesh=mesh)
     end_job(mesh)
     logger.info('Success! Data can be found in %s.',
                 os.path.dirname(args.distances))

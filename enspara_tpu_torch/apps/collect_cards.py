@@ -6,8 +6,11 @@ checks; reference: enspara/apps/collect_cards.py).
         --trajectories t*.xtc --topology top.pdb \\
         --matrices cards.pkl --indices inds.csv
 
-It runs on one CUDA device; ``ENSPARA_TPU_PLATFORM=cpu`` runs it on the
-CPU. The pickle holds numpy arrays under the reference's four keys.
+It runs on the CUDA devices, the joint counting sharded over every
+visible card (:func:`~enspara_tpu_torch.parallel.mesh.frame_mesh`, as
+in the JAX app; one card runs on its own); ``ENSPARA_TPU_PLATFORM=cpu``
+runs it on the CPU. The pickle holds numpy arrays under the
+reference's four keys.
 """
 
 import argparse
@@ -19,6 +22,7 @@ import numpy as np
 
 from .. import exception
 from ..cards import cards
+from ..parallel.mesh import frame_mesh
 from ..util.backend import select_device
 from ..util.log import timed
 from ..util.parallel import auto_nprocs
@@ -120,10 +124,12 @@ def main(argv=None):
     gen = load_trajectory_generator(args.trajectories[0],
                                     args.topology[0])
 
+    mesh = frame_mesh()
     with timed('Calculating CARDS correlations took %.1f s.',
                logger.info):
         ss_mi, dd_mi, sd_mi, ds_mi, inds = cards(
-            gen, args.buffer_size, args.processes)
+            gen, args.buffer_size, args.processes,
+            mesh=mesh if mesh.size > 1 else None)
 
     save_cards(ss_mi, dd_mi, sd_mi, ds_mi, args.matrices)
     np.savetxt(args.indices, inds, delimiter=',')

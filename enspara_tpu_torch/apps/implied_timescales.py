@@ -5,10 +5,11 @@ enspara/apps/implied_timescales.py).
     python -m enspara_tpu_torch.apps.implied_timescales \\
         --assignments assig.h5 --out its.npy --plot its.png
 
-It runs on the CUDA device; ``ENSPARA_TPU_PLATFORM=cpu`` runs it on the
-CPU. On the card, the transpose builder without ``--trim`` on gap-free
-assignments takes one batched solve over every lag; otherwise the lags
-fan out over the host.
+It runs on the CUDA devices; ``ENSPARA_TPU_PLATFORM=cpu`` runs it on the
+CPU. On the cards, the transpose builder without ``--trim`` on gap-free
+assignments takes one batched solve over every lag, the lag axis split
+over every visible card as the JAX app splits it over the chips;
+otherwise the lags fan out over the host.
 """
 
 import argparse
@@ -22,8 +23,8 @@ from .. import ra
 from ..msm import builders
 from ..msm.eigen_device import implied_timescales_batched
 from ..msm.timescales import implied_timescales
+from ..parallel.mesh import resolve_placement
 from ..util.backend import select_device
-from ..util.device import resolve_device
 
 logger = logging.getLogger(__name__)
 
@@ -129,24 +130,27 @@ def _batched_device(device):
     return device.type == 'cuda'
 
 
-def _timescales_dispatch(assignments, args, device):
+def _timescales_dispatch(assignments, args, device, mesh=None):
     """Pick the batched device path when it is exactly applicable
     (transpose builder, no trim, gap-free assignments, a CUDA device);
     otherwise the host per-lag fan-out. The batched path runs every
     lag's counting + builder + ``eigvalsh`` in one (n_lags, n, n) fp32
-    stack on one card (``mesh=None``)."""
+    stack on ``device``, or with the lags split over the shards of
+    ``mesh``."""
     eligible = (args.symmetrization is builders.transpose
-                and not args.trim and _batched_device(device))
+                and not args.trim
+                and _batched_device(device if mesh is None else mesh.lead))
     if eligible:
         data = assignments._data if hasattr(assignments, '_data') \
             else np.asarray(assignments)
         eligible = not (np.asarray(data) == -1).any()
     if eligible:
         logger.info('using batched device timescales (%d lags in one '
-                    'solve on %s)', len(args.lag_times), device)
+                    'solve on %s)', len(args.lag_times),
+                    device if mesh is None else mesh)
         return implied_timescales_batched(
             assignments, args.lag_times, n_times=args.n_eigenvalues,
-            sliding_window=True, device=device)
+            sliding_window=True, device=device, mesh=mesh)
     return implied_timescales(
         assignments, args.lag_times, n_times=args.n_eigenvalues,
         sliding_window=True, trim=args.trim,
@@ -161,13 +165,14 @@ def load_assignments(args):
     return assignments
 
 
-def run(assignments, args, device=None):
+def run(assignments, args, device=None, mesh=None):
     """The timescales of ``assignments`` at every lag of ``args`` on
-    ``device`` (default: the card, see
-    :func:`~enspara_tpu_torch.util.device.resolve_device`), written to
-    ``--out`` and plotted to ``--plot`` when given; returns them."""
-    device = resolve_device(assignments, device)
-    tscales = _timescales_dispatch(assignments, args, device)
+    ``device`` or over ``mesh`` (default: every visible card, one card
+    the one-device path; see
+    :func:`~enspara_tpu_torch.parallel.mesh.resolve_placement`), written
+    to ``--out`` and plotted to ``--plot`` when given; returns them."""
+    device, mesh = resolve_placement(assignments, device, mesh)
+    tscales = _timescales_dispatch(assignments, args, device, mesh)
 
     unit_factor, unit_str = process_units(args.timestep,
                                           args.infer_timestep)
@@ -195,9 +200,9 @@ def run(assignments, args, device=None):
 
 
 def main(argv=None):
-    device = select_device()   # honors $ENSPARA_TPU_PLATFORM
+    select_device()   # honors $ENSPARA_TPU_PLATFORM; raises without a card
     args = process_command_line(sys.argv if argv is None else argv)
-    run(load_assignments(args), args, device)
+    run(load_assignments(args), args)
     return 0
 
 

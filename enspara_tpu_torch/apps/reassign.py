@@ -5,8 +5,8 @@
         --trajectories ... --topology ... --atoms 'name CA' \\
         --distances d.h5 --assignments a.h5
 
-It runs on the CUDA device; ``ENSPARA_TPU_PLATFORM=cpu`` runs it on the
-CPU.
+It runs on every visible card (a small batch on the current one), the
+library's default; ``ENSPARA_TPU_PLATFORM=cpu`` runs it on the CPU.
 """
 
 import argparse
@@ -93,18 +93,20 @@ def load_centers(args):
     return centers
 
 
-def run(args, centers, device):
+def run(args, centers, device=None):
     """Every frame of the trajectories to its nearest center on
-    ``device``: ``(assignments, distances)``."""
+    ``device`` (None: the library's default placement, every visible
+    card or, for a small batch, the current card): ``(assignments,
+    distances)``."""
     return reassign(args.topologies, args.trajectories,
                     [args.atoms] * len(args.topologies), centers=centers,
                     frac_mem=args.mem_fraction, device=device)
 
 
 def main(argv=None):
-    device = select_device()   # honors $ENSPARA_TPU_PLATFORM
+    select_device()   # honors $ENSPARA_TPU_PLATFORM; raises without a card
     args = process_command_line(sys.argv if argv is None else argv)
-    assig, dist = run(args, load_centers(args), device)
+    assig, dist = run(args, load_centers(args))
     for path, payload in ((args.distances, dist),
                           (args.assignments, assig)):
         ra.save(path, payload)

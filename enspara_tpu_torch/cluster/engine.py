@@ -70,7 +70,8 @@ from ..ops.qcp import qcp_rmsd_vector
 from ..ops.qcp_matrix import (TILE_C, pad_centers, pad_frames,
                               qcp_rmsd_matrix_block, to_layout)
 from ..ops.qcp_update import kcenters_iteration
-from ..parallel.mesh import host_fetch, pad_to_multiple, shard_frames
+from ..parallel.mesh import (host_fetch, pad_to_multiple,
+                             resolve_placement, shard_frames)
 from ..parallel.ops import distribute_frames, owned_rows
 from ..util.device import resolve_device
 
@@ -414,14 +415,24 @@ def _prepare_data(X, metric):
 
 def prepare_sharded(X, metric, mesh=None, device=None):
     """Ingest frames once for ``metric`` (JAX ``engine.py:142-159``):
-    feature vectors as a :class:`PreparedFeatures` on ``device``
-    (default: where a tensor ``X`` lies, the card for host data) or,
-    given a mesh of more than one shard, a :class:`ShardedFeatures` of
-    zero-padded contiguous blocks; 'rmsd' coordinates through
+    on ``device``, over the shards of ``mesh``, or where a tensor ``X``
+    lies; otherwise over :func:`~enspara_tpu_torch.parallel.mesh.
+    frame_mesh`, every visible card, as in the JAX package (one card is
+    the one-device path). Feature vectors become a
+    :class:`PreparedFeatures` on one device or a :class:`ShardedFeatures`
+    of zero-padded contiguous blocks; 'rmsd' coordinates go through
     :func:`prepare_rmsd_frames`. Returns the container, where the JAX
     function returns ``(sharded array, n)``."""
+    device, mesh = resolve_placement(X, device, mesh)
     if metric == 'rmsd':
         return prepare_rmsd_frames(X, device=device, mesh=mesh)
+    return _prepare_features(X, metric, device, mesh)
+
+
+def _prepare_features(X, metric, device=None, mesh=None):
+    """Feature vectors as a :class:`PreparedFeatures` on ``device``
+    (default: where a tensor ``X`` lies, the card for host data) or,
+    over a mesh of more than one shard, a :class:`ShardedFeatures`."""
     data = _prepare_data(X, metric)
     if mesh is not None:
         if device is not None:
@@ -470,7 +481,7 @@ def _prepared(X, metric, device=None, mesh=None, tile=None, **kw):
     if metric == 'rmsd':
         return prepare_rmsd_frames(X, tile=tile or TILE, device=device,
                                    mesh=mesh, **kw)
-    return prepare_sharded(X, metric, mesh=mesh, device=device)
+    return _prepare_features(X, metric, device, mesh)
 
 
 def _kcenters_loop(prep, dist, assig, n_start, n_clusters, dist_cutoff,
@@ -821,6 +832,11 @@ def kcenters_device(X, metric='euclidean', n_clusters=None,
     ``X`` is ``(n, d)`` feature vectors, ``(n, n_atoms, 3)``
     coordinates for ``metric='rmsd'`` (which runs
     :func:`kcenters_device_fused`), or a prepared container of either.
+    It runs on ``device``, over ``mesh``, or where a tensor or container
+    ``X`` lies; otherwise on the current card for frames of fewer than
+    ``SMALL_JOB_FEATURES`` features and over every visible card for more
+    (:func:`~enspara_tpu_torch.parallel.mesh.resolve_placement`, the JAX
+    function's default mesh).
     Stops at ``n_clusters`` centers or once the max distance is ``<=
     dist_cutoff``; warm starts pass the previous run's
     ``init_distances``/``init_assignments`` with ``n_init_centers`` and
@@ -837,6 +853,7 @@ def kcenters_device(X, metric='euclidean', n_clusters=None,
                          % (sorted(METRICS), metric))
     if n_clusters is None and dist_cutoff is None:
         raise ValueError('Either n_clusters or dist_cutoff is required')
+    device, mesh = resolve_placement(X, device, mesh, small_job_rule=True)
     if metric == 'rmsd':
         return kcenters_device_fused(
             X, n_clusters=n_clusters, dist_cutoff=dist_cutoff, k_max=k_max,
@@ -1078,8 +1095,11 @@ def assign_device(X, centers, metric='euclidean', device=None, mesh=None):
     data) or over the shards of ``mesh``, or a container prepared for
     the metric (:class:`PreparedFeatures`, :class:`ShardedFeatures`,
     :class:`PreparedRMSDFrames`, :class:`ShardedRMSDFrames`); ``centers``
-    is ``(k, d)`` or ``(k, n_atoms, 3)``. RMSD frames and centers are
-    centered on the device, and their blocks are the all-pairs kernel.
+    is ``(k, d)`` or ``(k, n_atoms, 3)``. Host data with neither goes to
+    the JAX function's default: the current card for frames of fewer
+    than ``SMALL_JOB_FEATURES`` features, every visible card for more.
+    RMSD frames and centers are centered on the device, and their blocks
+    are the all-pairs kernel.
     Over a mesh each shard assigns its own frames, centers replicated,
     with no communication until the results are gathered.
 
@@ -1089,6 +1109,7 @@ def assign_device(X, centers, metric='euclidean', device=None, mesh=None):
     if metric not in METRICS:
         raise ValueError('device engine supports metrics %s, got %r'
                          % (sorted(METRICS), metric))
+    device, mesh = resolve_placement(X, device, mesh, small_job_rule=True)
     prep = _prepared(X, metric, device, mesh)
     if metric == 'rmsd' and (prep.precision != 'fp32'
                              or prep.perm is not None):

@@ -48,7 +48,7 @@ import numpy as np
 import torch
 
 from . import engine
-from ..parallel.mesh import FrameMesh, host_fetch
+from ..parallel.mesh import FrameMesh, host_fetch, resolve_placement
 from ..parallel.ops import global_argmax, owned_rows
 
 __all__ = ['kmedoids_sweeps_device', 'sweep_bits']
@@ -335,15 +335,22 @@ def kmedoids_sweeps_device(X, metric, assignments, distances, medoid_inds,
     seed : seeds the ``torch.Generator`` that draws each sweep's random
         bits on the mesh's lead device (:func:`sweep_bits`; deterministic
         for a seed and device type, not jax's bits).
-    device : where to run host (numpy) input; tensors run where they lie.
+    device : where to run host (numpy) input; tensors and prepared
+        containers run where they lie.
     proposal_batch : proposals per all-pairs block.
     mesh : a :class:`~enspara_tpu_torch.parallel.mesh.FrameMesh` to run
         the sweeps over its shards (not with ``device``); prepared
         frames laid out for another shard count raise ``ValueError``.
+        With neither, host input runs over every visible card
+        (:func:`~enspara_tpu_torch.parallel.mesh.frame_mesh`, the JAX
+        function's default; one card is the one-device path), but frames
+        of fewer than ``SMALL_JOB_FEATURES`` features (n_frames x
+        features a frame) on the current card.
 
     Returns ``(medoid_inds, distances, assignments)`` as numpy arrays
     (on every process of a mesh that spans processes).
     """
+    device, mesh = resolve_placement(X, device, mesh, small_job_rule=True)
     prep = engine._prepared(X, metric, device, mesh)
     sharded = isinstance(prep, (engine.ShardedRMSDFrames,
                                 engine.ShardedFeatures))

@@ -13,7 +13,7 @@ from .engine_kmedoids import kmedoids_sweeps_device
 from .kcenters import kcenters as _kcenters
 from .kmedoids import _kmedoids_iterations
 from .util import run_timed
-from ..parallel.mesh import placement
+from ..parallel.mesh import resolve_placement
 from ..util.backend import check_random_state
 
 logger = logging.getLogger(__name__)
@@ -26,7 +26,8 @@ class KHybrid(util.MolecularClusterMixin):
     ``kmedoids_updates`` PAM sweeps to refine them (on the card for data
     on a CUDA device). A ``mesh`` of one shard runs on its device; over
     more shards both stages run per shard, the PAM stage as the device
-    sweeps on any device type."""
+    sweeps on any device type. With neither ``device`` nor ``mesh``,
+    :func:`hybrid`'s default placement applies."""
 
     def __init__(self, metric, n_clusters=None, cluster_radius=None,
                  kmedoids_updates=5, random_first_center=False,
@@ -64,8 +65,12 @@ def hybrid(X, distance_method, n_iters=5, n_clusters=None,
     first-center seed is drawn from ``random_state`` before the PAM
     seed, as in the JAX package. ``mesh`` reaches both stages: a mesh of
     one shard runs on its device, more shards run k-centers and the
-    device sweeps over them."""
-    device, mesh = placement(mesh, device)
+    device sweeps over them. With neither ``device`` nor ``mesh``, host
+    data runs where the JAX function's k-centers stage does: on the
+    current card for frames of fewer than ``SMALL_JOB_FEATURES``
+    features, over every visible card for more; both stages run
+    there."""
+    device, mesh = resolve_placement(X, device, mesh, small_job_rule=True)
     random_state = check_random_state(random_state)
 
     result = _kcenters(
@@ -94,11 +99,13 @@ def hybrid_device(X, metric='rmsd', n_iters=5, n_clusters=None,
     """K-hybrid with both stages on the device: the k-centers loop seeds
     the device PAM sweeps, from frames prepared once, on ``device`` or
     over the shards of ``mesh`` (the same container serves both stages),
-    for any named metric.
+    for any named metric. With neither, host data runs as the JAX
+    function's does: on the current card for frames of fewer than
+    ``SMALL_JOB_FEATURES`` features, over every visible card for more.
 
     Returns a ClusterResult (centers gathered host-side at the end).
     """
-    device, mesh = placement(mesh, device)
+    device, mesh = resolve_placement(X, device, mesh, small_job_rule=True)
     xyz = X.xyz if hasattr(X, 'xyz') else X
     prep = engine.prepare_sharded(xyz, metric, mesh=mesh, device=device)
     res = engine.kcenters_device(prep, metric, n_clusters=n_clusters,

@@ -8,7 +8,12 @@ loop of :func:`~enspara_tpu_torch.cluster.engine.kcenters_device`. A
 warm start from ``init_centers`` assigns the frames to them first
 through :func:`~enspara_tpu_torch.cluster.engine.assign_device`. With
 ``mesh=`` (a :class:`~enspara_tpu_torch.parallel.mesh.FrameMesh`) the
-frames are sharded over it and both run per shard. ``precision='bf16'``
+frames are sharded over it and both run per shard; with neither
+``device=`` nor ``mesh=``, host input runs where the JAX function's
+default mesh puts it: the current card for frames of fewer than
+``SMALL_JOB_FEATURES`` features, every visible card for more
+(:func:`~enspara_tpu_torch.parallel.mesh.resolve_placement`).
+``precision='bf16'``
 streams RMSD frames in bfloat16 and ``sort='locality'`` clusters a
 locality-sorted layout (:func:`~enspara_tpu_torch.cluster.engine.
 prepare_rmsd_frames`). Callable metrics run the host loop with the
@@ -24,6 +29,7 @@ from ..exception import ImproperlyConfigured
 
 from . import engine, util
 from .util import run_timed
+from ..parallel.mesh import resolve_placement
 from ..util.backend import check_random_state
 
 logger = logging.getLogger(__name__)
@@ -50,6 +56,8 @@ class KCenters(util.MolecularClusterMixin):
         lie.
     mesh : FrameMesh, optional
         Shard the frames over this mesh instead (not with ``device``).
+        With neither, the default mesh of the JAX package: the current
+        card for small jobs, every visible card otherwise.
     precision : 'fp32' (default) or 'bf16'
         'bf16' streams the frames in bfloat16 through the k-centers
         kernels (metric 'rmsd'): half the bytes, distances rounded by
@@ -144,6 +152,8 @@ def kcenters(traj, distance_method, n_clusters=None, dist_cutoff=None,
                         else xyz[first]]
 
     if metric_name is not None:
+        device, mesh = resolve_placement(xyz, device, mesh,
+                                         small_job_rule=True)
         return _kcenters_fast(xyz, metric_name, n_clusters, dist_cutoff,
                               init_centers, device, mesh, precision, sort)
     if sort is not None:

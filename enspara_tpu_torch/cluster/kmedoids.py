@@ -20,7 +20,7 @@ from ..exception import DataInvalid, ImproperlyConfigured
 
 from . import engine, util
 from .util import run_timed
-from ..parallel.mesh import placement
+from ..parallel.mesh import resolve_placement
 from ..util.backend import check_random_state
 from ..util.device import resolve_device
 
@@ -77,7 +77,10 @@ class KMedoids(util.MolecularClusterMixin):
     mesh : FrameMesh, optional
         Run over the shards of this mesh instead (not with ``device``):
         a one-shard mesh runs on its device, more shards run the device
-        sweeps over them.
+        sweeps over them. With neither, host input runs over every
+        visible card, the JAX package's default mesh (one card is the
+        one-device path), but frames of fewer than
+        ``SMALL_JOB_FEATURES`` features on the current card.
     """
 
     def __init__(self, metric, n_clusters=None, n_iters=5,
@@ -111,13 +114,17 @@ def kmedoids(X, distance_method, n_clusters=None, n_iters=5,
     recovered) and/or ``cluster_center_inds``. A ``mesh`` of one shard
     runs on its device; over more shards the cold start's assignment and
     the sweeps run per shard (the device sweeps, on any device type).
+    With neither ``device`` nor ``mesh``, a tensor runs where it lies and
+    host input over every visible card (the JAX sweeps' default mesh),
+    but on the current card for frames of fewer than
+    ``SMALL_JOB_FEATURES`` features (n_frames x features a frame).
     """
-    device, mesh = placement(mesh, device)
     if (cluster_center_inds is None and n_clusters is None
             and (assignments is None or distances is None)):
         raise ImproperlyConfigured(
             'Must provide n_clusters or cluster_center_inds or '
             '(assignments and distances) for KMedoids')
+    device, mesh = resolve_placement(X, device, mesh, small_job_rule=True)
 
     metric = util._get_distance_method(distance_method)
     random_state = check_random_state(random_state)
@@ -199,7 +206,6 @@ def _kmedoids_iterations(X, metric, n_iters, cluster_center_inds,
     if backend not in ('auto', 'host', 'device'):
         raise DataInvalid("backend must be 'auto', 'host' or "
                           "'device', got %r" % (backend,))
-    device, mesh = placement(mesh, device)
     metric_name = util._metric_name(metric)
     on_device = mesh is not None or \
         resolve_device(_xyz(X), device).type == 'cuda'

@@ -12,9 +12,11 @@ every sparse product is the ELL kernel of
 the host.
 """
 
+import contextlib
 import logging
 import os
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import scipy.linalg
@@ -636,7 +638,7 @@ def implied_timescales_batched(assigns, lag_times, n_times=None,
 
     Returns (n_lags, n_times) float64, like ``implied_timescales``.
     """
-    from ..parallel.mesh import host_fetch, replicated, shard_frames
+    from ..parallel.mesh import host_fetch, pad_to_multiple, replicated
     from ..ra import to_padded
 
     padded = to_padded(assigns)
@@ -660,8 +662,22 @@ def implied_timescales_batched(assigns, lag_times, n_times=None,
                             torch.as_tensor(m, device=dev), lags, *args)
         return out.cpu().numpy().astype(np.float64)
 
-    lag_sh, _ = shard_frames(lags, mesh, pad_value=1)
-    outs = [_batched_lags(a_s, m_s, l_s.cpu().numpy(), *args)
-            for a_s, m_s, l_s in zip(replicated(a, mesh), replicated(m, mesh),
-                                     lag_sh)]
+    # each shard's lags cut on the host, not read back from its card
+    n_local = pad_to_multiple(max(len(lags), mesh.size), mesh.size) \
+        // mesh.size
+    lag_pad = np.ones(n_local * mesh.size, np.int64)
+    lag_pad[:len(lags)] = lags
+    a_r, m_r = replicated(a, mesh), replicated(m, mesh)
+
+    def solve(s):
+        lo = (mesh.first_shard + s) * n_local
+        dev = mesh.devices[s]
+        with torch.cuda.device(dev) if dev.type == 'cuda' \
+                else contextlib.nullcontext():
+            return _batched_lags(a_r[s], m_r[s], lag_pad[lo:lo + n_local],
+                                 *args)
+    # one host thread a shard: eigvalsh waits for its card, and one
+    # shard's wait must not hold back the others' launches
+    with ThreadPoolExecutor(mesh.n_local) as ex:
+        outs = list(ex.map(solve, range(mesh.n_local)))
     return host_fetch(outs, mesh).astype(np.float64)[:len(lags)]

@@ -6,8 +6,8 @@ The host functions are the JAX package's, unchanged: unassigned (-1)
 frames are stripped per trajectory *before* pairing, so transitions
 skip over gaps; sliding-window or strided pairing at the lag time;
 accumulation into a scipy COO counts matrix. :func:`assigns_to_counts_device`
-counts masked lag pairs of padded rows on a device with
-``torch.bincount``; :func:`assigns_to_counts_sharded` splits the rows
+counts masked lag pairs of padded rows on a device with a scatter-add
+(no host read); :func:`assigns_to_counts_sharded` splits the rows
 over the shards of a frame mesh and sums their counts.
 """
 
@@ -186,7 +186,7 @@ def assigns_to_counts_device(assigns_padded, mask, lag_time, n_states,
             'lag_time must be a positive integer; got %r' % (lag_time,))
     if isinstance(assigns_padded, np.ndarray) \
             and isinstance(mask, np.ndarray) and assigns_padded.size:
-        # bincount would silently drop out-of-range states: check host
+        # the counting drops an out-of-range state silently: check host
         # inputs, masked-in cells only (masked-out cells may hold any
         # padding value); device inputs are the caller's contract
         masked_max = int(np.max(assigns_padded, initial=-1,
@@ -199,8 +199,10 @@ def assigns_to_counts_device(assigns_padded, mask, lag_time, n_states,
     m = torch.as_tensor(mask, device=device).to(torch.bool)
     start = a[:, :-lag_time]
     end = a[:, lag_time:]
+    # a state out of [0, n_states) is dropped with the invalid pairs,
+    # never indexed (the scatter-add would assert on the card)
     valid = (m[:, :-lag_time] & m[:, lag_time:] & (start >= 0)
-             & (end >= 0))
+             & (end >= 0) & (start < n_states) & (end < n_states))
     if not sliding_window:
         stride = torch.zeros_like(valid)
         stride[:, ::lag_time] = True
@@ -208,7 +210,12 @@ def assigns_to_counts_device(assigns_padded, mask, lag_time, n_states,
     # invalid pairs go to the sentinel bin n_states**2, sliced off
     sentinel = n_states * n_states
     flat = torch.where(valid, start * n_states + end, sentinel)
-    counts = torch.bincount(flat.reshape(-1), minlength=sentinel + 1)
+    # a scatter-add, not torch.bincount: bincount reads the input's min
+    # and max back to the host, which would stall a loop over shards
+    flat = flat.reshape(-1)
+    counts = torch.zeros(sentinel + 1, dtype=torch.int64,
+                         device=flat.device)
+    counts.index_add_(0, flat, torch.ones_like(flat))
     return counts[:sentinel].to(torch.int32).reshape(n_states, n_states)
 
 

@@ -21,9 +21,14 @@ collective). :func:`job_mesh` picks the group: NCCL when every process
 leads its shards from a card of its own, gloo otherwise (CPU shards, or
 processes that share a card, which NCCL refuses).
 
-Multi-process jobs call :func:`initialize_distributed` first. Unlike the
-JAX package, small jobs are not rerouted to the CPU: a mesh of CUDA
-devices runs on them or raises.
+Multi-process jobs call :func:`initialize_distributed` first.
+
+``mesh=None`` means what it means in the JAX package: every visible
+card (:func:`frame_mesh`), but for a clustering, assignment or PAM
+job too small to pay for several cards, which runs on the current card
+(:func:`small_job_device`). :func:`resolve_placement` applies that
+rule, after an explicit ``mesh=`` or ``device=`` and the place the
+input already lies. No job leaves the card for the CPU.
 """
 
 import os
@@ -36,7 +41,23 @@ FRAME_AXIS = 'frames'
 __all__ = ['FRAME_AXIS', 'FrameMesh', 'frame_mesh', 'n_devices',
            'pad_to_multiple', 'shard_frames', 'replicated', 'host_fetch',
            'initialize_distributed', 'install_abort_excepthook',
-           'job_mesh', 'placement', 'mesh_platform']
+           'job_mesh', 'placement', 'mesh_platform', 'SMALL_JOB_FEATURES',
+           'small_job_device', 'resolve_placement', 'job_features']
+
+# A clustering, assignment or PAM job whose frames hold fewer features
+# than this (n_frames * features-per-frame: 3 * n_atoms for RMSD) runs
+# on the current card rather than over every visible card. Over k cards
+# each k-centers iteration and each PAM proposal batch pays a fixed cost
+# of cross-card copies and launches (~2 ms an iteration on 4 H100s),
+# against a per-iteration time on one card that grows with the frames,
+# so the crossover is a count of frames, whatever the centers. On 4
+# H100s k-centers to 1000 centers from the host took as long on one card
+# as on four at 16M 64-atom frames (3.07e9 features) and was faster on
+# one card below (chip_mesh_crossover.py). The JAX package's rule
+# (SMALL_JOB_WORK, pair-feature elements n * k * features) guards a TPU
+# compile instead. 0 turns the rule off.
+SMALL_JOB_FEATURES = float(os.environ.get('ENSPARA_TPU_SMALL_JOB_FEATURES',
+                                          3e9))
 
 
 def _world_group():
@@ -274,6 +295,74 @@ def placement(mesh, device):
     if mesh.size == 1:
         return mesh.devices[0], None
     return None, mesh
+
+
+def small_job_device(features):
+    """The current device of the default platform (the current card; the
+    CPU under ``$ENSPARA_TPU_PLATFORM=cpu``) for a job whose frames hold
+    fewer than :data:`SMALL_JOB_FEATURES` features, else None (the
+    caller takes :func:`frame_mesh`); None when
+    :data:`SMALL_JOB_FEATURES` is 0.
+
+    The counterpart of the JAX package's ``maybe_small_job_mesh``, which
+    sends jobs below ``n * k * features`` of ``SMALL_JOB_WORK`` to a
+    one-device CPU mesh to spare a TPU compile and does nothing on a CPU
+    backend. Here they stay on the card, and the reason is the fixed
+    cost a job split over several cards pays at every iteration. On the
+    CPU the default mesh is one device already, so the rule changes
+    nothing there."""
+    if not SMALL_JOB_FEATURES or features >= SMALL_JOB_FEATURES:
+        return None
+    from ..util.backend import select_device
+    dev = select_device()
+    if dev.type == 'cuda':
+        dev = torch.device('cuda', torch.cuda.current_device())
+    return dev
+
+
+def resolve_placement(X, device=None, mesh=None, small_job_rule=False):
+    """Where a function that takes ``device=`` and ``mesh=`` runs, as
+    ``(device, mesh)`` in the form of :func:`placement` (one of them
+    None), the first rule that applies deciding:
+
+    1. ``mesh`` given: that mesh (with ``device`` too: ``ValueError``);
+    2. ``device`` given: that device;
+    3. ``X`` (or its ``.xyz``) a tensor: its device; a prepared
+       container: where it lies (a sharded one over its shards'
+       devices);
+    4. ``small_job_rule`` and :func:`job_features` of ``X`` below
+       :data:`SMALL_JOB_FEATURES`: the current card
+       (:func:`small_job_device`);
+    5. :func:`frame_mesh`, every visible card; one card (or the CPU) is
+       the one-device path.
+
+    The clustering and assignment entry points set ``small_job_rule``;
+    the others (``prepare_sharded``, the implied CLI's batched solve)
+    take the default mesh whatever the size, as in the JAX package. The
+    public entry points resolve once and pass the result down."""
+    if mesh is not None or device is not None:
+        return placement(mesh, device)
+    X = X.xyz if hasattr(X, 'xyz') else X
+    if isinstance(X, torch.Tensor):
+        return X.device, None
+    if hasattr(X, 'shards'):      # a sharded container, with the job's group
+        return placement(FrameMesh(tuple(sh.device for sh in X.shards),
+                                   _world_group()), None)
+    if isinstance(getattr(X, 'device', None), torch.device):
+        return X.device, None
+    if small_job_rule:
+        small = small_job_device(job_features(X))
+        if small is not None:
+            return small, None
+    return placement(frame_mesh(), None)
+
+
+def job_features(X):
+    """``n_frames * features-per-frame`` of ``X`` (``(n, d)`` features or
+    ``(n, n_atoms, 3)`` coordinates, or anything with such an
+    ``.xyz``), the small-job rule's measure."""
+    shape = np.shape(X.xyz if hasattr(X, 'xyz') else X)
+    return float(shape[0]) * (int(np.prod(shape[1:])) or 1)
 
 
 def mesh_platform(mesh):

@@ -72,6 +72,20 @@ def test_counts_validation_matches_jax():
         np.asarray(jax_counts(a, mask, 1, 7)))
 
 
+def test_counts_tensor_input_drops_out_of_range_states():
+    """A tensor input is not checked on the host (that would read it
+    back from the card): a state >= n_states drops its pairs, as a
+    masked-out cell does, instead of counting into another pair's bin or
+    indexing past the counts (a device-side assert on the card)."""
+    a = np.array([[0, 1, 7, 2, 3], [2, 2, 1, 0, 9]])
+    mask = np.ones_like(a, dtype=bool)
+    got = assigns_to_counts_device(torch.from_numpy(a), mask, 1, 7)
+    inside = mask & (a < 7)
+    np.testing.assert_array_equal(
+        got.numpy(), np.asarray(jax_counts(a, inside, 1, 7)))
+    assert got.numpy().sum() == 5
+
+
 def _compare_tail(C, k):
     ts, w, v = transpose_timescales_device(torch.from_numpy(C), k,
                                            lag_time=2)

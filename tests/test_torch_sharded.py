@@ -307,20 +307,30 @@ def test_batched_timescales_lag_sharded():
 
 def test_shard_count_mismatch_raises():
     """Prepared frames run only on a mesh of their shard count
-    (engine.py:927-933), in the PAM sweeps as in k-centers; kmedoids
-    over a 2-shard mesh runs the sweeps over it and equals one device."""
+    (engine.py:927-933), in the PAM sweeps as in k-centers; given no
+    mesh, the sweeps run a sharded container over its own shards (the
+    fused loop, whose JAX counterpart reads no mesh as one device,
+    raises); kmedoids over a 2-shard mesh runs the sweeps over it and
+    equals one device."""
     X = np.random.default_rng(0).normal(size=(300, 6, 3)).astype(np.float32)
     prep4 = engine.prepare_rmsd_frames(X, tile=32, mesh=_cpu_mesh(4))
     assert prep4.n_shards == 4 and prep4.n_local * 4 % (32 * 4) == 0
     one = engine.prepare_rmsd_frames(X, tile=32)
+    warm = (np.zeros(300), np.zeros(300), [0, 1, 2, 3])
     for x, mesh in ((prep4, _cpu_mesh(8)), (prep4, None),
                     (one, _cpu_mesh(2))):
         with pytest.raises(ValueError, match='laid out for'):
             engine.kcenters_device_fused(x, n_clusters=4, mesh=mesh)
+        if mesh is None:
+            own = engine_kmedoids.kmedoids_sweeps_device(x, 'rmsd', *warm)
+            ref = engine_kmedoids.kmedoids_sweeps_device(
+                x, 'rmsd', *warm, mesh=_cpu_mesh(4))
+            for a, b in zip(own, ref):
+                np.testing.assert_array_equal(a, b)
+            continue
         with pytest.raises(ValueError, match='laid out for'):
-            engine_kmedoids.kmedoids_sweeps_device(
-                x, 'rmsd', np.zeros(300), np.zeros(300), [0, 1, 2, 3],
-                mesh=mesh)
+            engine_kmedoids.kmedoids_sweeps_device(x, 'rmsd', *warm,
+                                                   mesh=mesh)
     with pytest.raises(ValueError, match='laid out for'):
         engine.assign_device(prep4, X[:2], 'rmsd', mesh=_cpu_mesh(2))
     # half the scale: the cold start's warm-start gate (1e-3) refuses the
