@@ -161,7 +161,18 @@ drives these paths:
      1000 --subsample 1 --random-state 0: both processes bit for bit an
      in-process FrameMesh((cuda:0,) * 2) run, rank 0 alone writing the
      center indices and structures (the .h5 write left out), --subsample
-     2 refused, stage seconds a process;
+     2 refused, stage seconds a process, the loop's ms an iteration;
+     (d) with two or more cards, the same sequence on all 100 of phase
+     5's files (1M frames) in one process a card (up to 4; process r
+     started with CUDA_VISIBLE_DEVICES=r), so that the job joins over
+     NCCL: every process reports the nccl backend, mesh.size and
+     first_shard, and equals bit for bit the in-process run over
+     FrameMesh([cuda:0 .. cuda:P-1]); rank 0 alone writes; stage seconds
+     and launches a process, and rank 0's torch.profiler window of 64
+     loop iterations (launches, NCCL kernel time, idle share) beside the
+     in-process run and 16c (one card: a line says 16d did not run).
+     A worker that fails, or runs past JOB_TIMEOUT, ends the job's other
+     processes and fails the run;
 17.  mesh=None, the JAX package's default mesh: (a) frame_mesh() holds
      every visible card; kcenters on phase 2's frames (from the host),
      assign_device of them to its centers, KHybrid on phase 5's
@@ -176,7 +187,14 @@ drives these paths:
      runs kernel 4 over them; a 501-frame job stays on the current card;
      (b) with two or more cards, phase 9 and 16a-b over frame_mesh(),
      bit for bit the same on virtual shards of cuda:0 (one card: a line
-     says this half did not run).
+     says this half did not run);
+18.  assign_device of 32M x 64-atom frames (chip_mesh_crossover.py's
+     random walk, made on the card a million frames at a time and held
+     on the host) to 1000 centers on one card, through the streamed
+     ingest: seconds, pairs/s and the peak allocated memory, which stays
+     below the frame layout plus 1.25 of its (n_pad, 256) center blocks
+     (one block alive at a time), the first 1,048,576 rows bit for bit
+     the assignment of those frames alone.
 
 Every time printed was taken on the card's machine (device stages timed
 with CUDA events or to a synchronize, host stages on its host), warm
@@ -184,8 +202,11 @@ where it says so, and stands beside the card's name and power limit. Any failed 
 and the exit code is not 0. Without a CUDA device it fails before
 printing a result.
 
-Run with ``--job-worker RANK DIR`` it is one process of phase 16c (the
-parent starts both).
+Run with ``--job-worker RANK DIR`` it is one process of phase 16c or
+16d (the parent starts them all). Phase 16d runs where two or more cards
+are visible, for example on a four-card machine:
+
+    python3 chip_smoke.py          # every card visible: 16d on up to 4
 
 Standard output ends with a JSON line of the kernels (each with its
 launches on its path, its time, its plain version's, its bound at the
@@ -1389,18 +1410,28 @@ def iteration_kernels(device, X, card):
     return nums
 
 
-def loop_profile(X, mesh, card):
+def loop_profile(X, mesh, card, report=True):
     """Where an iteration of the sharded loop goes on the card: two runs
     of 64 and 128 centers from the same prepared frames under
     torch.profiler (CUDA activity), each after a warm-up, and their
     difference over 64 iterations: the launches and device ms of kernel 4
-    and of everything else (the collectives' torch ops), the wall ms, and
-    the share of it the card is idle."""
+    and of everything else (the collectives' torch ops), the wall ms,
+    and the share of it that no compute kernel runs (idle). NCCL's
+    kernels spin while they wait for the other processes, so their
+    device time varies from run to run: theirs is the 128-center run's
+    over its iterations, apart from the rest. Over a mesh that spans
+    processes every process runs the same loops and only the one with
+    ``report`` profiles them. Returns the figures (None when not
+    measured)."""
     from torch.profiler import ProfilerActivity, profile
+
+    def window():
+        return profile(activities=[ProfilerActivity.CUDA]) if report \
+            else contextlib.nullcontext()
     prep = engine.prepare_rmsd_frames(X, mesh=mesh)
     # one profiled run first: the profiler's first window costs extra
     # host time, which made the shorter run the slower one
-    with profile(activities=[ProfilerActivity.CUDA]):
+    with window():
         engine.kcenters_device_fused(prep, n_clusters=CHUNK_CENTERS,
                                      mesh=mesh)
         torch.cuda.synchronize()
@@ -1408,42 +1439,54 @@ def loop_profile(X, mesh, card):
     for k in (CHUNK_CENTERS, 2 * CHUNK_CENTERS):
         engine.kcenters_device_fused(prep, n_clusters=k, mesh=mesh)
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with window() as prof:
             t = time.perf_counter()
             engine.kcenters_device_fused(prep, n_clusters=k, mesh=mesh)
             torch.cuda.synchronize()
             wall = 1e3 * (time.perf_counter() - t)
-        kern, other = [0, 0.0], [0, 0.0]
+        if not report:
+            continue
+        parts = {'kern': [0, 0.0], 'nccl': [0, 0.0], 'other': [0, 0.0]}
         for e in prof.key_averages():
             us = getattr(e, 'device_time_total', None)
             if us is None:
                 us = getattr(e, 'cuda_time_total', 0.0)
             if us > 0:
-                part = kern if 'kc_iter_skip' in e.key else other
+                part = parts['kern' if 'kc_iter_skip' in e.key else
+                             'nccl' if 'nccl' in e.key.lower() else 'other']
                 part[0] += e.count
                 part[1] += us / 1e3
-        runs[k] = (wall, kern, other)
-    (w1, k1, o1), (w2, k2, o2) = runs.values()
-    per = [(b - a) / CHUNK_CENTERS for a, b in (
-        (w1, w2), (k1[0], k2[0]), (k1[1], k2[1]), (o1[0], o2[0]),
-        (o1[1], o2[1]))]
-    if per[2] <= 0:
+        runs[k] = [wall] + [v for p in parts.values() for v in p]
+    if not report:
+        return None
+    a, b = runs.values()
+    per = dict(zip(('wall_ms', 'k4_launches', 'k4_ms', 'nccl_launches',
+                    'nccl_ms', 'other_launches', 'other_ms'),
+                   ((y - x) / CHUNK_CENTERS for x, y in zip(a, b))))
+    per['nccl_launches'], per['nccl_ms'] = (v / (2 * CHUNK_CENTERS)
+                                            for v in b[3:5])
+    busy = per['k4_ms'] + per['other_ms']
+    if per['k4_ms'] <= 0:
         print('[%s] sharded loop profile: the profiler saw no device time '
               '(not measured)' % card, flush=True)
-        return
-    if per[0] < per[2] + per[4]:
+        return None
+    if per['wall_ms'] < busy:
         print('[%s] sharded loop profile: wall %.4f ms an iteration below '
               'its device time %.4f ms, the two runs\' host times too noisy '
-              '(idle share not measured)' % (card, per[0], per[2] + per[4]),
+              '(idle share not measured)' % (card, per['wall_ms'], busy),
               flush=True)
-        return
+        return None
+    per['idle'] = 1 - busy / per['wall_ms']
     print('[%s] sharded loop per iteration (torch.profiler, %d-center '
           'runs minus %d-center runs): wall %.4f ms; kernel 4 %.2f launches, '
           '%.4f ms on the card; other ops (the collectives) %.2f launches, '
-          '%.4f ms on the card; card idle %.1f%%'
-          % (card, 2 * CHUNK_CENTERS, CHUNK_CENTERS, per[0], per[1], per[2],
-             per[3], per[4], 100 * (1 - (per[2] + per[4]) / per[0])),
-          flush=True)
+          '%.4f ms on the card; card idle %.1f%%; NCCL kernels (the '
+          '128-center run, waits included) %.2f launches, %.4f ms'
+          % (card, 2 * CHUNK_CENTERS, CHUNK_CENTERS, per['wall_ms'],
+             per['k4_launches'], per['k4_ms'], per['other_launches'],
+             per['other_ms'], 100 * per['idle'], per['nccl_launches'],
+             per['nccl_ms']), flush=True)
+    return per
 
 
 def sharded_path(device, X, single, t_single, card, mesh=None):
@@ -4053,6 +4096,9 @@ def explicit_dye_checks(d, lib, traj, pair, device, card, stages, t_lib):
 MESH_SWEEPS = 2
 JOB_PROCS, JOB_FILES = 2, 10
 JOB_WORKER_FLAG = '--job-worker'
+# phase 16d: at most this many processes, one a card; a job's processes
+# are ended after JOB_TIMEOUT seconds
+CARD_JOB_PROCS, JOB_TIMEOUT = 4, 600
 
 
 def pam_cost(d):
@@ -4191,10 +4237,13 @@ def _free_port():
 
 
 def job_worker(rank, d):
-    """Phase 16c's process ``rank``: the cluster CLI's multi-process
-    sequence (join_job, the flags, load, fit over the job's mesh, rank
-    0's writes but for the .h5 file, the closing barrier) on the job in
-    ``d``; its result and stage seconds are saved for the parent."""
+    """Process ``rank`` of phase 16c or 16d: the cluster CLI's
+    multi-process sequence (join_job, the flags, load, fit over the
+    job's mesh, rank 0's writes but for the .h5 file, the closing
+    barrier) on the job in ``d``, then, where the job asks, the sharded
+    loop's profile window (every process runs it, rank 0 profiles); its
+    result, stage seconds and a draw of ``sweep_bits`` on its lead card
+    are saved for the parent."""
     import torch.distributed as dist
     from enspara_tpu_torch.exception import ImproperlyConfigured
 
@@ -4205,7 +4254,7 @@ def job_worker(rank, d):
     mesh = cluster_app.join_job()
     t_join = time.perf_counter() - t
     device = require_cuda()
-    check(mesh is not None and mesh.size == JOB_PROCS
+    check(mesh is not None and mesh.size == job['procs']
           and mesh.process_index == rank and mesh.first_shard == rank,
           'job mesh %r' % (mesh,))
     try:
@@ -4222,8 +4271,11 @@ def job_worker(rank, d):
     reset_launches()
     engine_kmedoids._pam_sweeps.n_host_syncs = 0
     with Stage(hybrid_mod, '_kcenters') as kc, \
+            Stage(engine, '_kcenters_loop_fused_sharded') as loop, \
             Stage(hybrid_mod, '_kmedoids_iterations') as pam:
         clustering = cluster_app.fit(args, data, device, mesh)
+    k4, syncs = (kcenters_iteration_skip.n_launches,
+                 engine_kmedoids._pam_sweeps.n_host_syncs)
     t = time.perf_counter()
     wrote = cluster_app.write_outputs(args, clustering, lengths, device,
                                       mesh, h5=False)
@@ -4231,33 +4283,85 @@ def job_worker(rank, d):
     t = time.perf_counter()
     cluster_app.end_job(mesh)
     t_end = time.perf_counter() - t
+    bits = next(engine_kmedoids.sweep_bits(0, 1, len(data.xyz), mesh.lead))
+    profile = loop_profile(data.xyz, mesh, card_line(), report=rank == 0) \
+        if job['profile'] else None
     r = clustering.result_
     np.savez(os.path.join(d, 'res%d.npz' % rank),
              ctr=np.asarray(r.center_indices), assig=r.assignments,
              dist=r.distances, seed=kc.result.distances)
     with open(os.path.join(d, 'stages%d.json' % rank), 'w') as f:
         json.dump({'join': t_join, 'load': t_load, 'kcenters': kc.seconds,
-                   'pam': pam.seconds, 'write': t_write, 'barrier': t_end,
-                   'wrote': wrote, 'syncs':
-                   engine_kmedoids._pam_sweeps.n_host_syncs,
-                   'k4': kcenters_iteration_skip.n_launches,
-                   'qcp': pam.qcp, 'backend': dist.get_backend(mesh.group)},
-                  f)
+                   'loop': loop.seconds, 'pam': pam.seconds,
+                   'write': t_write, 'barrier': t_end, 'wrote': wrote,
+                   'syncs': syncs, 'k4': k4, 'qcp': pam.qcp,
+                   'backend': dist.get_backend(mesh.group),
+                   'bits': [int(bits.sum()), *bits[:3].tolist()],
+                   'profile': profile}, f)
+    if job['profile']:
+        dist.barrier()
     print('JOB WORKER %d OK' % rank, flush=True)
     dist.destroy_process_group()
 
 
-def job_check(device, card):
-    """Phase 16c: the cluster CLI in two processes joined over gloo (each
-    one shard, frame_mesh() of cuda:0) on JOB_FILES of phase 5's XTC
-    files, --algorithm khybrid --cluster-number 1000 --subsample 1
-    --random-state 0; both processes' results bit for bit against an
-    in-process FrameMesh((cuda:0,) * 2) run, rank 0 alone writing.
-    Returns kernel 5's launches in one process's PAM."""
+def _run_workers(d, env_of, n):
+    """Start ``n`` ``--job-worker`` processes of this script on the job in
+    ``d`` (process ``r`` with the environment ``env_of(r)``, its output
+    in ``d/out<r>.txt``) and wait for them all. The first to fail, or
+    JOB_TIMEOUT seconds, ends the others: no process waits out a
+    collective's own timeout. Returns the exit codes and outputs."""
+    procs = []
+    with contextlib.ExitStack() as files:
+        logs = [files.enter_context(open(os.path.join(d, 'out%d.txt' % r),
+                                         'w+')) for r in range(n)]
+        try:
+            for r in range(n):
+                procs.append(subprocess.Popen(
+                    [sys.executable, os.path.abspath(__file__),
+                     JOB_WORKER_FLAG, str(r), d], stdout=logs[r],
+                    stderr=subprocess.STDOUT, env=env_of(r), text=True))
+            deadline = time.monotonic() + JOB_TIMEOUT
+            while time.monotonic() < deadline:
+                codes = [p.poll() for p in procs]
+                if None not in codes or any(c not in (None, 0)
+                                            for c in codes):
+                    break
+                time.sleep(0.2)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                p.wait()
+        outs = []
+        for f in logs:
+            f.seek(0)
+            outs.append(f.read())
+    return [p.returncode for p in procs], outs
+
+
+def job_check(device, card, label='16c', n_procs=JOB_PROCS,
+              n_files=JOB_FILES, own_cards=False):
+    """Phase 16c (or 16d): the cluster CLI in ``n_procs`` processes on
+    ``n_files`` of phase 5's XTC files, --algorithm khybrid
+    --cluster-number 1000 --subsample 1 --random-state 0. 16c: two
+    processes that see cuda:0 alone (``CUDA_VISIBLE_DEVICES``), each
+    one shard of it (frame_mesh() of the card), so that they stay on
+    gloo. 16d (``own_cards``): process ``r`` sees card ``r`` alone, so
+    that the job takes NCCL, and rank 0 profiles 64 iterations of the
+    sharded loop. Every
+    process's results bit for bit an in-process run of the same flags on
+    a mesh of as many shards (16c: virtual shards of cuda:0; 16d: the
+    cards cuda:0 .. cuda:n-1), rank 0 alone writing. Returns kernel 5's
+    launches in one process's PAM, the loop's ms an iteration and PAM's
+    seconds."""
+    backend = 'nccl' if own_cards else 'gloo'
+    visible = os.environ.get('CUDA_VISIBLE_DEVICES')
+    visible = visible.split(',') if visible else [str(r) for r in
+                                                  range(n_procs)]
     with tempfile.TemporaryDirectory() as d:
-        pdb, trjs, gsum = write_trajectories(d, JOB_FILES)
-        job = {}
-        for r in range(JOB_PROCS):
+        pdb, trjs, gsum = write_trajectories(d, n_files)
+        job = {'procs': n_procs, 'profile': own_cards}
+        for r in range(n_procs):
             os.makedirs(os.path.join(d, 'r%d' % r))
             argv = ['cluster', '--trajectories', *trjs, '--topology', pdb,
                     '--atoms', 'name CA', '--algorithm', 'khybrid',
@@ -4272,90 +4376,102 @@ def job_check(device, card):
         with open(os.path.join(d, 'job.json'), 'w') as f:
             json.dump(job, f)
         port = str(_free_port())
-        procs = []
-        t = time.perf_counter()
-        for r in range(JOB_PROCS):
-            env = dict(os.environ, ENSPARA_TPU_COORDINATOR='localhost:' + port,
-                       ENSPARA_TPU_NUM_PROCESSES=str(JOB_PROCS),
+
+        def env_of(r):
+            env = dict(os.environ,
+                       ENSPARA_TPU_COORDINATOR='localhost:' + port,
+                       ENSPARA_TPU_NUM_PROCESSES=str(n_procs),
                        ENSPARA_TPU_PROCESS_ID=str(r))
             env.pop('ENSPARA_TPU_LOCAL_SHARDS', None)
-            procs.append(subprocess.Popen(
-                [sys.executable, os.path.abspath(__file__), JOB_WORKER_FLAG,
-                 str(r), d], stdout=subprocess.PIPE,
-                stderr=subprocess.STDOUT, env=env, text=True))
-        outs = []
-        try:
-            for p in procs:
-                outs.append(p.communicate(timeout=400)[0])
-        finally:
-            for p in procs:
-                if p.poll() is None:
-                    p.kill()
-                    p.wait()
+            env['CUDA_VISIBLE_DEVICES'] = visible[r if own_cards else 0]
+            return env
+        t = time.perf_counter()
+        codes, outs = _run_workers(d, env_of, n_procs)
         t_job = time.perf_counter() - t
-        for r, (p, out) in enumerate(zip(procs, outs)):
-            check(p.returncode == 0 and 'JOB WORKER %d OK' % r in out,
-                  'job worker %d exited %s:\n%s' % (r, p.returncode,
-                                                    out[-4000:]))
-        check(sorted(os.listdir(os.path.join(d, 'r0')))
-              == ['centers.pkl', 'inds.npy']
-              and os.listdir(os.path.join(d, 'r1')) == [],
-              'the writes: rank 0 %s, rank 1 %s'
-              % (os.listdir(os.path.join(d, 'r0')),
-                 os.listdir(os.path.join(d, 'r1'))))
+        for r, (code, out) in enumerate(zip(codes, outs)):
+            check(code == 0 and 'JOB WORKER %d OK' % r in out,
+                  '%s: job worker %d exited %s:\n%s'
+                  % (label, r, code, out[-4000:]))
+        written = [sorted(os.listdir(os.path.join(d, 'r%d' % r)))
+                   for r in range(n_procs)]
+        check(written == [['centers.pkl', 'inds.npy']] + [[]] * (n_procs - 1),
+              '%s: the writes by rank: %s' % (label, written))
         stages = []
-        for r in range(JOB_PROCS):
+        for r in range(n_procs):
             with open(os.path.join(d, 'stages%d.json' % r)) as f:
                 stages.append(json.load(f))
-        check([s['wrote'] for s in stages] == [True, False],
-              'write_outputs wrote on %s' % [s['wrote'] for s in stages])
+        check([s['wrote'] for s in stages]
+              == [True] + [False] * (n_procs - 1),
+              '%s: write_outputs wrote on %s'
+              % (label, [s['wrote'] for s in stages]))
+        check([s['backend'] for s in stages] == [backend] * n_procs,
+              '%s: the processes joined over %s, not %s'
+              % (label, [s['backend'] for s in stages], backend))
+        check(all(s['bits'] == stages[0]['bits'] for s in stages),
+              '%s: sweep_bits differ between the processes\' cards: %s'
+              % (label, [s['bits'] for s in stages]))
 
-        # the in-process reference: the same flags on two virtual shards
+        # the in-process reference: the same flags on as many shards
+        ref_mesh = FrameMesh([torch.device('cuda', r) for r in range(n_procs)]
+                             if own_cards else (device,) * n_procs)
         args = cluster_app.process_command_line(job['argv0'])
         lengths, data = cluster_util.load_trjs_or_features(args)
         reset_launches()
         t = time.perf_counter()
-        ref = cluster_app.fit(args, data, None,
-                              FrameMesh((device,) * JOB_PROCS)).result_
-        torch.cuda.synchronize()
+        with Stage(engine, '_kcenters_loop_fused_sharded') as ref_loop, \
+                Stage(hybrid_mod, '_kmedoids_iterations') as ref_pam:
+            ref = cluster_app.fit(args, data, None, ref_mesh).result_
+        for k in range(torch.cuda.device_count()):
+            torch.cuda.synchronize(k)
         t_ref = time.perf_counter() - t
-        for r in range(JOB_PROCS):
+        for r in range(n_procs):
             got = np.load(os.path.join(d, 'res%d.npz' % r))
             check(np.array_equal(got['ctr'], np.asarray(ref.center_indices))
                   and np.array_equal(got['assig'], ref.assignments)
                   and np.array_equal(got['dist'], ref.distances),
-                  '16c: process %d differs from the in-process 2-shard run'
-                  % r)
+                  '%s: process %d differs from the in-process %d-shard run'
+                  % (label, r, n_procs))
             check(pam_cost(got['dist']) <= pam_cost(got['seed']),
-                  '16c: PAM raised the cost')
+                  '%s: PAM raised the cost' % label)
         inds = np.load(os.path.join(d, 'r0', 'inds.npy'))
         glob = [t_ * TRJ_FRAMES + f_ for t_, f_ in inds]
         check(np.array_equal(glob, np.asarray(ref.center_indices))
               and len(set(glob)) == CLUSTER_K,
-              '16c: the written center indices differ from the result')
+              '%s: the written center indices differ from the result'
+              % label)
         with open(os.path.join(d, 'r0', 'centers.pkl'), 'rb') as f:
             centers = pickle.load(f)
         check(len(centers) == CLUSTER_K and all(
             np.array_equal(c.xyz[0], data.xyz[g])
             for c, g in zip(centers, glob)),
-            '16c: a written center structure is not its frame')
-    print('16c cluster CLI in %d processes joined over %s, 1 shard of %s '
-          'each, on %d XTC files x %d frames, khybrid -> %d: both processes '
-          'equal the '
-          'in-process 2-shard run bit for bit; rank 0 alone wrote the center '
-          'indices and structures; --subsample 2 refused'
-          % (JOB_PROCS, stages[0]['backend'], device, JOB_FILES, TRJ_FRAMES,
-             CLUSTER_K))
+            '%s: a written center structure is not its frame' % label)
+    where = ('card %s of its own (CUDA_VISIBLE_DEVICES)' % ', '.join(
+        visible[:n_procs]) if own_cards else '1 shard of %s each' % device)
+    print('%s cluster CLI in %d processes joined over %s, %s, on %d XTC '
+          'files x %d frames, khybrid -> %d: every process equals the '
+          'in-process %s run bit for bit; rank 0 alone wrote the center '
+          'indices and structures; --subsample 2 refused; sweep_bits(0) on '
+          'every process\'s lead card the same stream (sum, first values '
+          '%s)' % (label, n_procs, stages[0]['backend'], where, n_files,
+                   TRJ_FRAMES, CLUSTER_K, ref_mesh, stages[0]['bits']))
+    cards = cards_lines() if own_cards else card
     for r, st in enumerate(stages):
-        print('[%s] 16c process %d: join %.4f s, load %.4f s, k-centers %.4f '
-              's (%d kernel 4 launches), PAM %.4f s (%d host syncs, %d '
-              'kernel 5 launches), write %.4f s, barrier %.4f s'
-              % (card, r, st['join'], st['load'], st['kcenters'], st['k4'],
+        print('[%s] %s process %d: join %.4f s, load %.4f s, k-centers %.4f '
+              's (the loop %.4f s, %.4f ms an iteration; %d kernel 4 '
+              'launches), PAM %.4f s (%d host syncs, %d kernel 5 launches), '
+              'write %.4f s, barrier %.4f s'
+              % (cards, label, r, st['join'], st['load'], st['kcenters'],
+                 st['loop'], 1e3 * st['loop'] / CLUSTER_K, st['k4'],
                  st['pam'], st['syncs'], st['qcp'], st['write'],
                  st['barrier']))
-    print('[%s] 16c job %.4f s from launch to exit; in-process 2-shard fit '
-          '%.4f s' % (card, t_job, t_ref), flush=True)
-    return stages[0]['qcp']
+    print('[%s] %s job %.4f s from launch to exit; in-process %s fit %.4f '
+          's: the loop %.4f s (%.4f ms an iteration), PAM %.4f s (%d kernel 5 '
+          'launches)' % (cards, label, t_job, ref_mesh, t_ref,
+                         ref_loop.seconds, 1e3 * ref_loop.seconds / CLUSTER_K,
+                         ref_pam.seconds, ref_pam.qcp), flush=True)
+    return {'qcp': stages[0]['qcp'], 'k4': stages[0]['k4'],
+            'loop_ms': 1e3 * stages[0]['loop'] / CLUSTER_K,
+            'pam': stages[0]['pam'], 'profile': stages[0]['profile']}
 
 
 def subsampled(X):
@@ -4378,7 +4494,30 @@ def mesh_pam_path(device, card, phase5):
                                                         card)
     del X
     torch.cuda.empty_cache()
-    launches['16c'] = job_check(device, card)
+    gloo = job_check(device, card)
+    launches['16c'] = gloo['qcp']
+    n_cards = torch.cuda.device_count()
+    if n_cards < 2:
+        print('16d: %d CUDA device visible; the cluster CLI in one process '
+              'a card over NCCL did not run' % n_cards, flush=True)
+    else:
+        nccl = job_check(device, card, '16d', min(CARD_JOB_PROCS, n_cards),
+                         N_TRJ, own_cards=True)
+        launches['16d'] = nccl
+        prof = nccl['profile']
+        print('[%s] 16d against 16c (gloo, %d processes on cuda:0, %d '
+              'files): the loop %.4f ms an iteration against %.4f ms, PAM '
+              '%.4f s against %.4f s; rank 0\'s profile window: %s'
+              % (cards_lines(), JOB_PROCS, JOB_FILES, nccl['loop_ms'],
+                 gloo['loop_ms'], nccl['pam'], gloo['pam'],
+                 'not measured' if prof is None else
+                 'wall %.4f ms an iteration, kernel 4 %.2f launches %.4f ms, '
+                 'other ops %.2f launches %.4f ms, card idle %.1f%%, NCCL '
+                 'kernels %.2f launches %.4f ms (waits included)'
+                 % (prof['wall_ms'], prof['k4_launches'], prof['k4_ms'],
+                    prof['other_launches'], prof['other_ms'],
+                    100 * prof['idle'], prof['nccl_launches'],
+                    prof['nccl_ms'])), flush=True)
     print('[%s] phase 16 (PAM over a mesh, the multi-process CLI) passed'
           % card, flush=True)
     return launches, results
@@ -4608,6 +4747,66 @@ def default_mesh_path(device, card, single, t_single, phase2_launches,
           % (cards_lines(), n_cards, mesh.size), flush=True)
 
 
+# phase 18: one card assigns this many 64-atom frames (the random walk of
+# chip_mesh_crossover.py) to CLUSTER_K centers picked with this seed; the
+# first ASSIGN_CHECK frames are assigned again alone
+ASSIGN_FRAMES, ASSIGN_CHECK, ASSIGN_SEED = 32_000_000, 1 << 20, 18
+
+
+def big_assign_path(device, card):
+    """Phase 18: ``assign_device`` of ASSIGN_FRAMES x 64-atom frames
+    from the host to CLUSTER_K centers on one card, through the streamed
+    ingest (no raw copy of the coordinates on the card). Its peak
+    allocated memory stays below the frame layout plus 1.25 of its
+    ``(n_pad, 256)`` center blocks (one block alive at a time), and its
+    first ASSIGN_CHECK rows equal, bit for bit, the assignment of those
+    frames alone (a frame's row of kernel 5 does not depend on the other
+    frames). Returns kernel 5's launches."""
+    from chip_mesh_crossover import random_walk as random_walk_host
+    t = time.perf_counter()
+    X = random_walk_host(ASSIGN_FRAMES, device)
+    t_make = time.perf_counter() - t
+    rng = np.random.default_rng(ASSIGN_SEED)
+    C = X[np.sort(rng.choice(ASSIGN_FRAMES, CLUSTER_K, replace=False))]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    reset_launches()
+    t = time.perf_counter()
+    a, d = engine.assign_device(X, C, 'rmsd', device=device)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated(device) - base
+    launches = qcp_matrix.qcp_rmsd_matrix_kernel.n_launches
+    n_pad = pmesh.pad_to_multiple(ASSIGN_FRAMES, engine.TILE)
+    layout = n_pad * (3 * N_ATOMS * 4 + 4)
+    block = n_pad * qcp_matrix.TILE_C * 4
+    check(a.shape == d.shape == (ASSIGN_FRAMES,) and np.isfinite(d).all()
+          and 0 <= a.min() and a.max() < CLUSTER_K,
+          '18: assignments of shape %s in [%d, %d]'
+          % (a.shape, a.min(), a.max()))
+    check(launches == -(-CLUSTER_K // qcp_matrix.TILE_C),
+          '18: %d kernel 5 launches' % launches)
+    check(peak < layout + 1.25 * block, '18: peak %d B above the frame '
+          'layout %d B plus 1.25 blocks of %d B' % (peak, layout, block))
+    a1, d1 = engine.assign_device(X[:ASSIGN_CHECK], C, 'rmsd', device=device)
+    check(np.array_equal(a[:ASSIGN_CHECK], a1)
+          and np.array_equal(d[:ASSIGN_CHECK], d1),
+          '18: the first %d rows differ from their assignment alone'
+          % ASSIGN_CHECK)
+    print('[%s] 18 assign_device of %d x %d frames from the host to %d '
+          'centers on %s: %.4f s (%.4g pairs/s; %d kernel 5 launches); peak '
+          'allocated %d B (%.2f GiB) against the frame layout %d B plus one '
+          '(n_pad, %d) block %d B = %d B (%.2f GiB); the first %d rows equal '
+          'their assignment alone bit for bit; frames made in %.4f s'
+          % (card, ASSIGN_FRAMES, N_ATOMS, CLUSTER_K, device, secs,
+             ASSIGN_FRAMES * CLUSTER_K / secs, launches, peak, peak / 2 ** 30,
+             layout, qcp_matrix.TILE_C, block, layout + block,
+             (layout + block) / 2 ** 30, ASSIGN_CHECK, t_make), flush=True)
+    return launches
+
+
 def main():
     card = card_line()
     print('card:', card, flush=True)
@@ -4795,6 +4994,11 @@ def main():
     default_mesh_path(device, card, single, t_single, launches, path, labels,
                       cards12, dict(mesh_results, **{'9': sharded['result']}))
     del cards12
+    torch.cuda.empty_cache()
+
+    # -- 18. one card assigns 32M frames, one center block alive -----------
+    big_launches = big_assign_path(device, card)
+    torch.cuda.empty_cache()
     print('launches: north star kcenters_step %d; north star tri_skip=False '
           'kcenters_step_noskip %d; cluster -> reassign kcenters_step %d, '
           'qcp_matrix %d; scale-point eigensolve ell_spmm %d; implied '
@@ -4803,13 +5007,18 @@ def main():
           'tri_skip=False %d; bf16 sharded kcenters_iteration_skip %d, '
           'tri_skip=False qcp_update %d; PAM over the 4-shard mesh '
           'qcp_matrix %d (KHybrid at phase 5\'s scale), %d (1M sweeps); '
-          'two-process CLI qcp_matrix %d a process'
+          'two-process CLI qcp_matrix %d a process; %s32M assignment '
+          'qcp_matrix %d'
           % (launches, noskip_launches, path['kcenters_step'],
              path['qcp_matrix'], ell_launches, its_launches,
              sharded['kcenters_iteration_skip'], sharded['qcp_update'],
              bf16_launches['1'], bf16_launches['2'], bf16_launches['4'],
              bf16_launches['3'], mesh_pam['16a'], mesh_pam['16b'],
-             mesh_pam['16c']))
+             mesh_pam['16c'],
+             'one-process-a-card CLI kcenters_iteration_skip %d, qcp_matrix '
+             '%d a process; ' % (mesh_pam['16d']['k4'],
+                                 mesh_pam['16d']['qcp'])
+             if '16d' in mesh_pam else '', big_launches))
 
     print(json.dumps({'kernels': [{
         'name': 'kcenters_step', 'route': 'cuda', 'source': SOURCE,

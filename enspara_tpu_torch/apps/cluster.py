@@ -34,9 +34,18 @@ process leads from a card of its own and by gloo otherwise
 the outputs; the job ends at a barrier. ``--subsample`` above 1 is
 refused there, as in the JAX app.
 
-    ENSPARA_TPU_COORDINATOR=localhost:29500 ENSPARA_TPU_NUM_PROCESSES=2 \
-        ENSPARA_TPU_PROCESS_ID=0 python -m enspara_tpu_torch.apps.cluster \
+To give each process a card of its own, and the job NCCL, start process
+``r`` with ``CUDA_VISIBLE_DEVICES=r``; where the NCCL group cannot be
+made the job raises at join. A process that sees every card takes all
+of them as its shards, and the processes, sharing cards, stay on gloo.
+
+    CUDA_VISIBLE_DEVICES=0 ENSPARA_TPU_COORDINATOR=localhost:29500 \
+        ENSPARA_TPU_NUM_PROCESSES=2 ENSPARA_TPU_PROCESS_ID=0 \
+        python -m enspara_tpu_torch.apps.cluster \
         --trajectories ... --algorithm khybrid --subsample 1 ...
+
+``python3 chip_smoke.py`` with two or more cards visible runs the
+sequence in one process a card (its phase 16d).
 """
 
 import argparse

@@ -1029,7 +1029,9 @@ def _assign_all_rmsd(prep, centers):
     (one 64-multiple block below 256 centers) carrying the running
     (min, argmin). First-min ties: ``min`` keeps the lowest index
     inside a block and a strict ``<`` the earlier block; padded centers
-    are masked to +inf. Returns ``(assigs (n_pad,) int32, dists (n_pad,)
+    are masked to +inf. Each block is dropped before the next is made,
+    so peak memory is the frames plus one ``(n_pad, width)`` block, as
+    in the JAX package. Returns ``(assigs (n_pad,) int32, dists (n_pad,)
     float32)``."""
     k = int(centers.shape[0])
     fr, gf = _all_frames(prep)
@@ -1045,6 +1047,7 @@ def _assign_all_rmsd(prep, centers):
         if lo + width > k:
             d[:, k - lo:] = math.inf
         local_min, local_arg = d.min(dim=1)
+        del d
         upd = local_min < best_d
         best_d = torch.where(upd, local_min, best_d)
         best_i = torch.where(upd, (local_arg + lo).to(torch.int32), best_i)

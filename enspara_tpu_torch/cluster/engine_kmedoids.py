@@ -26,8 +26,9 @@ lives per shard, and the collectives GSPMD puts into the JAX sweep are
 explicit: the medoid and proposal columns reach every shard through one
 owner-masked sum per block (``engine._columns``); the proposal of each
 cluster is the global first argmax of the shards' priorities
-(``parallel.ops.global_argmax``); the candidate's zero self-distance is
-set on the shard that owns it; costs, the screen and the counts that
+(``parallel.ops.argmax_over_shards`` of each shard's maxima); the
+candidate's zero self-distance is set on the shard that owns it; costs,
+the screen and the counts that
 decide a repair are per-shard partial sums, reduced over the mesh
 before any host read, so that every process reads the same values and
 takes the same branch. The costs add the float32 squares in float64,
@@ -49,7 +50,7 @@ import torch
 
 from . import engine
 from ..parallel.mesh import FrameMesh, host_fetch, resolve_placement
-from ..parallel.ops import global_argmax, owned_rows
+from ..parallel.ops import argmax_over_shards, owned_rows
 
 __all__ = ['kmedoids_sweeps_device', 'sweep_bits']
 
@@ -63,6 +64,49 @@ def _mul32(x, c):
     lo = x * (c & 0xFFFF)
     hi = (x * (c >> 16)) & 0xFFFF
     return (lo + (hi << 16)) & _M32
+
+
+# elements of one 8-byte temporary of the proposal sampling and screen (1
+# GiB): a batch's clusters are sampled and screened as many at a time as
+# fit, so that their memory does not grow with the batch
+_SAMPLE_ELEMS = 1 << 27
+
+
+def _sample(rb, c, m0):
+    """Each cluster ``c`` (B,)'s largest priority over one shard's
+    frames and the first local frame holding it, ``(B,)`` int64 each:
+    the priority of a member (``m0`` (B, n)) is its random value ``rb``
+    (n,) mixed with the cluster id, a non-member's 0. As many clusters
+    at a time as keep a ``(rows, n)`` temporary within
+    ``_SAMPLE_ELEMS``."""
+    rows = max(1, _SAMPLE_ELEMS // max(1, rb.shape[0]))
+    vals, args = [], []
+    for lo in range(0, c.shape[0], rows):
+        mixed = rb[None, :] ^ ((0x9E3779B9 * c[lo:lo + rows, None]) & _M32)
+        prio = torch.where(m0[lo:lo + rows], _mul32(mixed, 0x85EBCA6B) | 1,
+                           0)
+        del mixed
+        arg = torch.argmax(prio, dim=1)
+        vals.append(prio.gather(1, arg[:, None])[:, 0])
+        args.append(arg)
+    return torch.cat(vals), torch.cat(args)
+
+
+def _screen(m0, d1, d2, Dt, valid):
+    """One shard's float64 sums of squares of each proposal's post-swap
+    distances at batch start, ``(B,)``: members of the displaced medoid
+    (``m0`` (B, n)) take ``min(d2, dnew)``, the others ``min(d1, dnew)``,
+    ``dnew`` the proposal's row of ``Dt`` (B, n). As many rows at a time
+    as keep a ``(rows, n)`` float64 copy within ``_SAMPLE_ELEMS``."""
+    rows = max(1, _SAMPLE_ELEMS // max(1, Dt.shape[1]))
+    sums = []
+    for lo in range(0, Dt.shape[0], rows):
+        D = Dt[lo:lo + rows]
+        cand0 = torch.where(m0[lo:lo + rows], torch.minimum(d2[None, :], D),
+                            torch.minimum(d1[None, :], D))
+        sums.append(torch.where(valid[None, :], cand0 * cand0, 0.0).sum(
+            dim=1, dtype=torch.float64))
+    return torch.cat(sums)
 
 
 def _read(*ts):
@@ -155,6 +199,7 @@ def _pam_sweeps(prep, d1, a1, medoid_inds, sweep_bits, bucket, batch=64,
             better = (cmin < d2[s]) & valid[s]
             d2[s] = torch.where(better, cmin, d2[s])
             a2[s] = torch.where(better, c[carg], a2[s])
+        del Ds                 # before the next block is made
 
     def repair(a1, d2, a2, stale, medoid_inds):
         """One k-way re-rank restores (d2, a2) for every stale point of
@@ -182,6 +227,16 @@ def _pam_sweeps(prep, d1, a1, medoid_inds, sweep_bits, bucket, batch=64,
                                      a2[s][idx])
         return d2, a2
 
+    def rows_of(s, D, p_idxs):
+        """Shard ``s``'s ``(n, B)`` block ``D`` of the proposals
+        ``p_idxs`` as ``(B, n)`` rows, each candidate's distance to
+        itself 0 on the shard that owns it."""
+        D = D.t().contiguous()
+        li, own = owned_rows(p_idxs.to(devs[s]), n_local, first + s)
+        r = torch.arange(B, device=devs[s])
+        D[r, li] = torch.where(own, 0.0, D[r, li])
+        return D
+
     cost_cur = cost(sq_sums(d1))
     for rbits in sweep_bits:
         # the sweep's n values, padded and cut into this process's shards
@@ -191,43 +246,30 @@ def _pam_sweeps(prep, d1, a1, medoid_inds, sweep_bits, bucket, batch=64,
         rb = [rbits[starts[s]:starts[s] + n_local].to(devs[s]) for s in S]
         for bi in range(n_batches):
             cids = bi * B + torch.arange(B, dtype=torch.long, device=lead)
-            # a uniform member per cluster, all B clusters in one (B, n)
-            # pass: the argmax of iid random priorities over a member
+            # a uniform member per cluster, all B clusters in (rows, n)
+            # passes: the argmax of iid random priorities over a member
             # set is uniform on it; |1 keeps members above the 0 of
             # non-members. sampled_ok: the cluster had members.
-            member0, prio = [], []
+            member0, pvals, pargs = [], [], []
             for s in S:
                 c = cids.to(devs[s])
                 m0 = (a1[s][None, :] == c[:, None]) & valid[s][None, :]
-                mixed = rb[s][None, :] ^ ((0x9E3779B9 * c[:, None]) & _M32)
-                mixed = _mul32(mixed, 0x85EBCA6B)
                 member0.append(m0)
-                prio.append(torch.where(m0, mixed | 1, 0).t())
-            pmax, p_idxs = global_argmax(prio, mesh)
+                v, a = _sample(rb[s], c, m0)
+                pvals.append(v)
+                pargs.append(a + starts[s])
+            pmax, p_idxs = argmax_over_shards(pvals, pargs, mesh)
             sampled_ok = pmax > 0
 
             # one (n, B) block for the whole batch, then (B, n) rows; a
             # candidate's distance to itself is 0 by definition, set on
             # the shard that owns it
-            Dt = []
-            for s, D in zip(S, block(p_idxs)):
-                D = D.t().contiguous()
-                li, own = owned_rows(p_idxs.to(devs[s]), n_local, first + s)
-                r = torch.arange(B, device=devs[s])
-                D[r, li] = torch.where(own, 0.0, D[r, li])
-                Dt.append(D)
+            Dt = [rows_of(s, D, p_idxs) for s, D in zip(S, block(p_idxs))]
 
             # batch-start screen: exact post-swap cost of every proposal
             # at batch start, a pre-filter once accepts move the cache
-            est_parts = []
-            for s in S:
-                cand0 = torch.where(member0[s],
-                                    torch.minimum(d2[s][None, :], Dt[s]),
-                                    torch.minimum(d1[s][None, :], Dt[s]))
-                est_parts.append(torch.where(
-                    valid[s][None, :], cand0 * cand0, 0.0).sum(
-                    dim=1, dtype=torch.float64))
-            est0 = cost(est_parts)
+            est0 = cost([_screen(member0[s], d1[s], d2[s], Dt[s], valid[s])
+                         for s in S])
             vals = _read(cost_cur, est0, sampled_ok, p_idxs)
             cost_h = vals[0]
             est0_h, ok_h = vals[1:B + 1], vals[B + 1:2 * B + 1]
@@ -293,6 +335,8 @@ def _pam_sweeps(prep, d1, a1, medoid_inds, sweep_bits, bucket, batch=64,
             # batch-end repair: the next batch starts from an exact cache
             if _read(total([st.sum() for st in stale]))[0] > 0:
                 d2, a2 = repair(a1, d2, a2, stale, medoid_inds)
+            # nothing of this batch's block outlives it
+            Dt = dnew = None
     if sharded:
         return d1, a1, medoid_inds
     return d1[0], a1[0], medoid_inds

@@ -268,7 +268,10 @@ def job_mesh(n=None):
     process's lead card is a card of its own (by UUID), and over the
     gloo world group otherwise: CPU shards, or processes that share a
     card, which NCCL refuses. Every process takes the same decision, so
-    every process creates the NCCL group or none does."""
+    every process creates the NCCL group or none does. The NCCL group
+    runs one collective at once, so that its communicator is built (or
+    fails) here, not inside the first job collective; a group that
+    cannot be made raises, with no return to gloo."""
     mesh = frame_mesh(n)
     if mesh.group is None or mesh.lead.type != 'cuda':
         return mesh
@@ -280,7 +283,13 @@ def job_mesh(n=None):
     if len(set(uuids)) < len(uuids):
         return mesh
     torch.cuda.set_device(mesh.lead)
-    return FrameMesh(mesh.devices, dist.new_group(backend='nccl'))
+    group = dist.new_group(backend='nccl')
+    one = torch.ones(1, device=mesh.lead)
+    dist.all_reduce(one, group=group)
+    if int(one.item()) != mesh.process_count:
+        raise RuntimeError('the NCCL group summed %s over %d processes'
+                           % (one.item(), mesh.process_count))
+    return FrameMesh(mesh.devices, group)
 
 
 def placement(mesh, device):

@@ -35,6 +35,7 @@ import torch
 from .io import _process_info as _proc_info
 
 __all__ = ['striped_max', 'striped_mean', 'global_argmax',
+           'argmax_over_shards',
            'distribute_frame', 'distribute_frames', 'owned_rows',
            'local_shard_bounds',
            'striped_array_max', 'striped_array_mean',
@@ -80,11 +81,19 @@ def global_argmax(xs, mesh):
     vals, args = [], []
     for s, x in enumerate(xs):
         la = torch.argmax(x, dim=0)
-        vals.append(x.gather(0, la.unsqueeze(0))[0].to(mesh.lead))
-        args.append((la + local_shard_bounds(
-            n_local, mesh.first_shard + s)[0]).to(mesh.lead))
-    vals = mesh.all_gather(torch.stack(vals))
-    args = mesh.all_gather(torch.stack(args))
+        vals.append(x.gather(0, la.unsqueeze(0))[0])
+        args.append(la + local_shard_bounds(n_local,
+                                            mesh.first_shard + s)[0])
+    return argmax_over_shards(vals, args, mesh)
+
+
+def argmax_over_shards(vals, args, mesh):
+    """The global step of :func:`global_argmax`, from each local
+    shard's max ``vals`` and the global index ``args`` of its first
+    frame holding it (one same-shaped pair per shard): the max over the
+    mesh and the smallest global index holding it, on the lead device."""
+    vals = mesh.all_gather(torch.stack([v.to(mesh.lead) for v in vals]))
+    args = mesh.all_gather(torch.stack([a.to(mesh.lead) for a in args]))
     best = vals.amax(0)
     return best, torch.where(vals == best, args, _IMAX).amin(0)
 

@@ -6,11 +6,14 @@ against the JAX ``_assign_all_rmsd_pallas(..., interpret=True)`` (the
 TPU kernel's scan over 256-wide center blocks) and the JAX
 ``assign_device`` on the CPU (the XLA path), ``kcenters`` with
 ``init_centers`` and ``random_first_center`` against the JAX
-``kcenters``, and the host helpers of ``cluster/util.py``. Assignments
+``kcenters``, and the host helpers of ``cluster/util.py``; the RMSD
+assignment holds one center block at a time. Assignments
 and center indices are equal (the data is tie-free, or the ties are
 exact duplicates, where the lower index wins); distances are held on
 the msd bar of test_torch_port.py.
 """
+
+import weakref
 
 import jax.numpy as jnp
 import numpy as np
@@ -75,6 +78,31 @@ def test_assign_device_matches_jax(k):
         assert_rmsd_close(d, rd, _gsum(X), X.shape[1])
     if k > 256:
         assert not (a == 280).any() and (a == 10).any()
+
+
+def test_assign_device_holds_one_block_at_a_time(monkeypatch):
+    """The RMSD assignment drops each center block before it makes the
+    next, as the JAX scan does (peak memory: the frames and one (n_pad,
+    256) block): no earlier block is alive when the next call starts,
+    and the labels are the JAX package's."""
+    X = _data(21, n=3000, a=10, basins=40)
+    rng = np.random.default_rng(22)
+    centers = X[rng.choice(len(X), 700, replace=False)]
+    real = engine.qcp_rmsd_matrix_block
+    blocks, alive_at_call = [], []
+
+    def tracked(*args):
+        alive_at_call.append(sum(r() is not None for r in blocks))
+        out = real(*args)
+        blocks.append(weakref.ref(out))
+        return out
+
+    monkeypatch.setattr(engine, 'qcp_rmsd_matrix_block', tracked)
+    a, d = engine.assign_device(X, centers, 'rmsd')
+    assert alive_at_call == [0, 0, 0]          # 256 + 256 + 188 centers
+    ja, jd = jengine.assign_device(X, centers, 'rmsd')
+    np.testing.assert_array_equal(a, ja)
+    assert_rmsd_close(d, jd, _gsum(X), X.shape[1])
 
 
 def test_assign_device_prepared_and_tensor_inputs():

@@ -12,7 +12,8 @@ CLI (its device sweeps) in center indices and assignments, distances on
 the msd bar of ``assert_rmsd_close``; rank 0 alone writes, and
 ``--subsample 2`` is refused. Both runs of the port draw the JAX
 package's bits for the sweeps, as the JAX CLI does, so that they can
-accept the same swaps.
+accept the same swaps. ``job_mesh`` takes NCCL only where every process
+leads from a card of its own (its collectives patched to record).
 """
 
 import importlib
@@ -384,3 +385,70 @@ def test_job_checks_and_placement():
     with pytest.raises(ValueError, match='not both'):
         placement(four, 'cpu')
     assert cluster.join_job() is None
+
+
+@pytest.mark.parametrize('uuids', ['distinct', 'repeated', 'cpu',
+                                   'no_nccl'])
+def test_job_mesh_takes_nccl_only_for_cards_of_their_own(uuids,
+                                                         monkeypatch):
+    """``job_mesh``'s decision for a 4-process job: every lead card
+    distinct (by UUID) makes one NCCL group, set on the lead card and
+    checked with one all_reduce over it; a repeated card, or CPU shards,
+    keep the gloo world group and make no group. Where the NCCL group
+    cannot be made, the job raises rather than staying on gloo."""
+    import torch.distributed as dist
+    from enspara_tpu_torch.parallel import mesh as pmesh
+
+    world, calls = object(), []
+    lead = 'cpu' if uuids == 'cpu' else 'cuda:0'
+    monkeypatch.setattr(pmesh, 'frame_mesh',
+                        lambda n=None: FrameMesh([lead], world))
+    monkeypatch.setattr(dist, 'get_world_size', lambda group=None: 4)
+    monkeypatch.setattr(dist, 'get_rank', lambda group=None: 2)
+    monkeypatch.setattr(torch.cuda, 'get_device_properties',
+                        lambda d: types.SimpleNamespace(uuid='GPU-2'))
+
+    def gather(out, obj, group=None):
+        calls.append(('all_gather_object', obj, group))
+        out[:] = (['GPU-0', 'GPU-1', 'GPU-2', 'GPU-2'] if uuids == 'repeated'
+                  else ['GPU-%d' % r for r in range(4)])
+
+    def new_group(**kw):
+        calls.append(('new_group', kw))
+        if uuids == 'no_nccl':
+            raise RuntimeError('Distributed package doesn\'t have NCCL')
+        return 'nccl-group'
+
+    def all_reduce(t, group=None):
+        calls.append(('all_reduce', t.tolist(), group))
+        t.mul_(4)
+
+    real_ones = torch.ones
+    monkeypatch.setattr(dist, 'all_gather_object', gather)
+    monkeypatch.setattr(dist, 'new_group', new_group)
+    monkeypatch.setattr(dist, 'all_reduce', all_reduce)
+    monkeypatch.setattr(torch.cuda, 'set_device',
+                        lambda d: calls.append(('set_device', str(d))))
+    # the CPU build allocates nothing on a card: the one-element tensor
+    # of the check lies on the CPU here
+    monkeypatch.setattr(torch, 'ones', lambda *a, device=None, **kw:
+                        real_ones(*a, **kw))
+
+    if uuids == 'no_nccl':
+        with pytest.raises(RuntimeError, match='NCCL'):
+            pmesh.job_mesh()
+        assert calls[-1] == ('new_group', {'backend': 'nccl'})
+        return
+    mesh = pmesh.job_mesh()
+    assert (mesh.size, mesh.first_shard) == (4, 2)
+    assert mesh.devices == (torch.device(lead),)
+    if uuids == 'distinct':
+        assert mesh.group == 'nccl-group'
+        assert calls == [('all_gather_object', 'GPU-2', world),
+                         ('set_device', 'cuda:0'),
+                         ('new_group', {'backend': 'nccl'}),
+                         ('all_reduce', [1.0], 'nccl-group')]
+    else:
+        assert mesh.group is world
+        assert calls == ([] if uuids == 'cpu' else
+                         [('all_gather_object', 'GPU-2', world)])

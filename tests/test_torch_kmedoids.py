@@ -104,6 +104,20 @@ def _jax_bits(key, s, n):
     (300, 70, 1, 64),     # k > 64: two cache-init chunks
 ])
 def test_pam_sweeps_match_jax(n, k, n_sweeps, batch):
+    _sweeps_match_jax(n, k, n_sweeps, batch)
+
+
+@pytest.mark.parametrize('rows', [1, 3])
+def test_pam_sampling_in_row_chunks_matches_jax(rows, monkeypatch):
+    """Proposals sampled and screened a few clusters at a time (as a
+    large job takes them, to bound the (rows, n) 8-byte temporaries;
+    here 1 and 3 of a batch of 8, the last chunk ragged) make the JAX
+    sweep's swaps."""
+    monkeypatch.setattr(engine_kmedoids, '_SAMPLE_ELEMS', rows * 512)
+    _sweeps_match_jax(512, 12, 3, 8)     # 512 frames: n_pad 512
+
+
+def _sweeps_match_jax(n, k, n_sweeps, batch):
     X = _data(n + k, n=n, a=8, basins=2 * k)
     seed = jax_kcenters(X, 'rmsd', n_clusters=k)
     Xc = np.asarray(jengine._center_structures(jnp.asarray(X)))
