@@ -74,6 +74,7 @@ from ..parallel.mesh import (host_fetch, pad_to_multiple,
                              resolve_placement, shard_frames)
 from ..parallel.ops import distribute_frames, owned_rows
 from ..util.device import resolve_device
+from ..util.log import trace_region
 
 __all__ = ['KCentersDeviceResult', 'PreparedRMSDFrames', 'ShardedRMSDFrames',
            'PreparedFeatures', 'ShardedFeatures', 'prepare_rmsd_frames',
@@ -496,8 +497,9 @@ def _kcenters_loop(prep, dist, assig, n_start, n_clusters, dist_cutoff,
     ctr = torch.full((k_max + G,), -1, dtype=torch.int32, device=dist.device)
     _, md, i = state.scalars()
     while i < n_clusters and md > dist_cutoff:
-        ctr[i:i + G] = kcenters_chunk(prep, state, G, skip=skip)[0]
-        _, md, i = state.scalars()
+        with trace_region('enspara/kcenters.chunk'):
+            ctr[i:i + G] = kcenters_chunk(prep, state, G, skip=skip)[0]
+            _, md, i = state.scalars()
     return ctr[:k_max], i
 
 

@@ -18,7 +18,10 @@ batch end.
 
 Every ``lax.cond``/``fori_loop`` of the JAX sweep is Python control
 flow here, deciding on a device scalar read back to the host:
-``n_host_syncs`` counts those reads.
+``n_host_syncs`` counts those reads. Under ``torch.profiler`` each read
+is an ``enspara/pam.read`` span (``util.log.trace_region``), inside
+the ``enspara/pam.batch`` span of its batch, as are the
+``enspara/pam.try`` and ``enspara/pam.repair`` spans.
 
 Over a :class:`~enspara_tpu_torch.parallel.mesh.FrameMesh` of several
 shards (a sharded container from ``engine``) every per-frame array
@@ -51,6 +54,7 @@ import torch
 from . import engine
 from ..parallel.mesh import FrameMesh, host_fetch, resolve_placement
 from ..parallel.ops import argmax_over_shards, owned_rows
+from ..util.log import trace_region
 
 __all__ = ['kmedoids_sweeps_device', 'sweep_bits']
 
@@ -113,8 +117,9 @@ def _read(*ts):
     """Device tensors to one flat list of host floats (exact for fp32
     values, bools and indices): one synchronising copy."""
     _pam_sweeps.n_host_syncs += 1
-    return torch.cat([t.reshape(-1).to(torch.float64) for t in ts]) \
-        .cpu().tolist()
+    flat = torch.cat([t.reshape(-1).to(torch.float64) for t in ts])
+    with trace_region('enspara/pam.read'):
+        return flat.cpu().tolist()
 
 
 def _pam_sweeps(prep, d1, a1, medoid_inds, sweep_bits, bucket, batch=64,
@@ -206,26 +211,27 @@ def _pam_sweeps(prep, d1, a1, medoid_inds, sweep_bits, bucket, batch=64,
         every shard; (d1, a1) are exact throughout and stay as they are.
         A shard's bucket holds its stale points, lowest index first,
         then filler."""
-        amb = [torch.argsort((~st).to(torch.int8), stable=True)[:bucket]
-               for st in stale]
-        Ds = block(medoid_inds, rows=amb)
-        d2, a2 = list(d2), list(a2)
-        for s in S:
-            idx = amb[s]
-            amb_real = stale[s][idx]
-            m = medoid_inds.to(devs[s])
-            # self-distance clamp for bucketed medoid points
-            d_amb = torch.where((idx + starts[s])[:, None] == m[None, :],
-                                0.0, Ds[s])
-            hide = (torch.arange(k, device=devs[s])[None, :]
-                    == a1[s][idx][:, None])
-            b_d2, b_a2 = torch.where(hide, math.inf, d_amb).min(dim=1)
-            d2[s] = d2[s].clone()
-            a2[s] = a2[s].clone()
-            d2[s][idx] = torch.where(amb_real, b_d2, d2[s][idx])
-            a2[s][idx] = torch.where(amb_real, b_a2.to(torch.int32),
-                                     a2[s][idx])
-        return d2, a2
+        with trace_region('enspara/pam.repair'):
+            amb = [torch.argsort((~st).to(torch.int8), stable=True)[:bucket]
+                   for st in stale]
+            Ds = block(medoid_inds, rows=amb)
+            d2, a2 = list(d2), list(a2)
+            for s in S:
+                idx = amb[s]
+                amb_real = stale[s][idx]
+                m = medoid_inds.to(devs[s])
+                # self-distance clamp for bucketed medoid points
+                d_amb = torch.where((idx + starts[s])[:, None] == m[None, :],
+                                    0.0, Ds[s])
+                hide = (torch.arange(k, device=devs[s])[None, :]
+                        == a1[s][idx][:, None])
+                b_d2, b_a2 = torch.where(hide, math.inf, d_amb).min(dim=1)
+                d2[s] = d2[s].clone()
+                a2[s] = a2[s].clone()
+                d2[s][idx] = torch.where(amb_real, b_d2, d2[s][idx])
+                a2[s][idx] = torch.where(amb_real, b_a2.to(torch.int32),
+                                         a2[s][idx])
+            return d2, a2
 
     def rows_of(s, D, p_idxs):
         """Shard ``s``'s ``(n, B)`` block ``D`` of the proposals
@@ -245,98 +251,103 @@ def _pam_sweeps(prep, d1, a1, medoid_inds, sweep_bits, bucket, batch=64,
         rbits = torch.nn.functional.pad(rbits, (0, n_pad - n_valid))
         rb = [rbits[starts[s]:starts[s] + n_local].to(devs[s]) for s in S]
         for bi in range(n_batches):
-            cids = bi * B + torch.arange(B, dtype=torch.long, device=lead)
-            # a uniform member per cluster, all B clusters in (rows, n)
-            # passes: the argmax of iid random priorities over a member
-            # set is uniform on it; |1 keeps members above the 0 of
-            # non-members. sampled_ok: the cluster had members.
-            member0, pvals, pargs = [], [], []
-            for s in S:
-                c = cids.to(devs[s])
-                m0 = (a1[s][None, :] == c[:, None]) & valid[s][None, :]
-                member0.append(m0)
-                v, a = _sample(rb[s], c, m0)
-                pvals.append(v)
-                pargs.append(a + starts[s])
-            pmax, p_idxs = argmax_over_shards(pvals, pargs, mesh)
-            sampled_ok = pmax > 0
-
-            # one (n, B) block for the whole batch, then (B, n) rows; a
-            # candidate's distance to itself is 0 by definition, set on
-            # the shard that owns it
-            Dt = [rows_of(s, D, p_idxs) for s, D in zip(S, block(p_idxs))]
-
-            # batch-start screen: exact post-swap cost of every proposal
-            # at batch start, a pre-filter once accepts move the cache
-            est0 = cost([_screen(member0[s], d1[s], d2[s], Dt[s], valid[s])
-                         for s in S])
-            vals = _read(cost_cur, est0, sampled_ok, p_idxs)
-            cost_h = vals[0]
-            est0_h, ok_h = vals[1:B + 1], vals[B + 1:2 * B + 1]
-            p_idx_h = [int(v) for v in vals[2 * B + 1:]]
-
-            stale = [torch.zeros(n_local, dtype=torch.bool, device=dv)
-                     for dv in devs]
-            for b in range(B):
-                cid = bi * B + b
-                if not (est0_h[b] < cost_h and ok_h[b] and cid < k):
-                    continue
-                dnew = [Dt[s][b] for s in S]
-                members = [(a1[s] == cid) & valid[s] for s in S]
-                # points whose (d2, a2) the swap would leave inexact
-                unc = [(members[s] | (a2[s] == cid)) & (dnew[s] > d2[s])
-                       & valid[s] for s in S]
-                # repair on demand: a stale member's d2 would make the
-                # post-swap d1 inexact, and an over-budget stale set
-                # could not be repaired later
-                n_ms, n_su = _read(total([torch.stack((
-                    (members[s] & stale[s]).sum(),
-                    (stale[s] | unc[s]).sum())) for s in S]))
-                if n_ms > 0 or n_su > bucket:
-                    d2, a2 = repair(a1, d2, a2, stale, medoid_inds)
-                    stale = [torch.zeros_like(st) for st in stale]
-                    unc = [(members[s] | (a2[s] == cid))
-                           & (dnew[s] > d2[s]) & valid[s] for s in S]
-
-                cand_d1 = [torch.where(members[s],
-                                       torch.minimum(d2[s], dnew[s]),
-                                       torch.minimum(d1[s], dnew[s]))
-                           for s in S]
-                new_stale = [stale[s] | unc[s] for s in S]
-                tot = total([torch.stack((p, st.sum().double()))
-                             for p, st in zip(sq_sums(cand_d1), new_stale)])
-                new_cost = tot[0].float() / n_valid
-                new_cost_h, n_stale = _read(new_cost, tot[1])
-                if not (new_cost_h < cost_h and n_stale <= bucket):
-                    continue
-
-                # commit: d1/a1 exact in every case; d2/a2 exact unless
-                # flagged stale, upper bounds until the next repair
-                w = torch.where
+            with trace_region('enspara/pam.batch'):
+                cids = bi * B + torch.arange(B, dtype=torch.long, device=lead)
+                # a uniform member per cluster, all B clusters in (rows, n)
+                # passes: the argmax of iid random priorities over a member
+                # set is uniform on it; |1 keeps members above the 0 of
+                # non-members. sampled_ok: the cluster had members.
+                member0, pvals, pargs = [], [], []
                 for s in S:
-                    in1, in2 = dnew[s] < d1[s], dnew[s] < d2[s]
-                    caseB = a1[s] == cid     # nearest displaced
-                    caseC = a2[s] == cid     # second-nearest displaced
-                    na1 = w(caseB, w(in2, cid, a2[s]), w(in1, cid, a1[s]))
-                    nd2 = w(caseB, torch.maximum(dnew[s], d2[s]),
-                            w(caseC, torch.maximum(dnew[s], d1[s]),
-                              w(in1, d1[s], w(in2, dnew[s], d2[s]))))
-                    na2 = w(caseB, w(in2, a2[s], cid),
-                            w(caseC, w(in1, a1[s], cid),
-                              w(in1, a1[s], w(in2, cid, a2[s]))))
-                    d1[s] = w(valid[s], cand_d1[s], math.inf)
-                    a1[s] = w(valid[s], na1, -1).to(torch.int32)
-                    d2[s] = w(valid[s], nd2, math.inf)
-                    a2[s] = w(valid[s], na2, -1).to(torch.int32)
-                medoid_inds[cid] = p_idx_h[b]
-                cost_cur, cost_h = new_cost, new_cost_h
-                stale = new_stale
+                    c = cids.to(devs[s])
+                    m0 = (a1[s][None, :] == c[:, None]) & valid[s][None, :]
+                    member0.append(m0)
+                    v, a = _sample(rb[s], c, m0)
+                    pvals.append(v)
+                    pargs.append(a + starts[s])
+                pmax, p_idxs = argmax_over_shards(pvals, pargs, mesh)
+                sampled_ok = pmax > 0
 
-            # batch-end repair: the next batch starts from an exact cache
-            if _read(total([st.sum() for st in stale]))[0] > 0:
-                d2, a2 = repair(a1, d2, a2, stale, medoid_inds)
-            # nothing of this batch's block outlives it
-            Dt = dnew = None
+                # one (n, B) block for the whole batch, then (B, n) rows; a
+                # candidate's distance to itself is 0 by definition, set on
+                # the shard that owns it
+                Dt = [rows_of(s, D, p_idxs)
+                      for s, D in zip(S, block(p_idxs))]
+
+                # batch-start screen: exact post-swap cost of every proposal
+                # at batch start, a pre-filter once accepts move the cache
+                est0 = cost([_screen(member0[s], d1[s], d2[s], Dt[s], valid[s])
+                             for s in S])
+                vals = _read(cost_cur, est0, sampled_ok, p_idxs)
+                cost_h = vals[0]
+                est0_h, ok_h = vals[1:B + 1], vals[B + 1:2 * B + 1]
+                p_idx_h = [int(v) for v in vals[2 * B + 1:]]
+
+                stale = [torch.zeros(n_local, dtype=torch.bool, device=dv)
+                         for dv in devs]
+                for b in range(B):
+                    cid = bi * B + b
+                    if not (est0_h[b] < cost_h and ok_h[b] and cid < k):
+                        continue
+                    with trace_region('enspara/pam.try'):
+                        dnew = [Dt[s][b] for s in S]
+                        members = [(a1[s] == cid) & valid[s] for s in S]
+                        # points whose (d2, a2) the swap would leave inexact
+                        unc = [(members[s] | (a2[s] == cid))
+                               & (dnew[s] > d2[s]) & valid[s] for s in S]
+                        # repair on demand: a stale member's d2 would make the
+                        # post-swap d1 inexact, and an over-budget stale set
+                        # could not be repaired later
+                        n_ms, n_su = _read(total([torch.stack((
+                            (members[s] & stale[s]).sum(),
+                            (stale[s] | unc[s]).sum())) for s in S]))
+                        if n_ms > 0 or n_su > bucket:
+                            d2, a2 = repair(a1, d2, a2, stale, medoid_inds)
+                            stale = [torch.zeros_like(st) for st in stale]
+                            unc = [(members[s] | (a2[s] == cid))
+                                   & (dnew[s] > d2[s]) & valid[s] for s in S]
+
+                        cand_d1 = [torch.where(members[s],
+                                               torch.minimum(d2[s], dnew[s]),
+                                               torch.minimum(d1[s], dnew[s]))
+                                   for s in S]
+                        new_stale = [stale[s] | unc[s] for s in S]
+                        tot = total([torch.stack((p, st.sum().double()))
+                                     for p, st in zip(sq_sums(cand_d1),
+                                                      new_stale)])
+                        new_cost = tot[0].float() / n_valid
+                        new_cost_h, n_stale = _read(new_cost, tot[1])
+                        if not (new_cost_h < cost_h and n_stale <= bucket):
+                            continue
+
+                        # commit: d1/a1 exact in every case; d2/a2 exact unless
+                        # flagged stale, upper bounds until the next repair
+                        w = torch.where
+                        for s in S:
+                            in1, in2 = dnew[s] < d1[s], dnew[s] < d2[s]
+                            caseB = a1[s] == cid     # nearest displaced
+                            caseC = a2[s] == cid     # second-nearest displaced
+                            na1 = w(caseB, w(in2, cid, a2[s]),
+                                    w(in1, cid, a1[s]))
+                            nd2 = w(caseB, torch.maximum(dnew[s], d2[s]),
+                                    w(caseC, torch.maximum(dnew[s], d1[s]),
+                                      w(in1, d1[s], w(in2, dnew[s], d2[s]))))
+                            na2 = w(caseB, w(in2, a2[s], cid),
+                                    w(caseC, w(in1, a1[s], cid),
+                                      w(in1, a1[s], w(in2, cid, a2[s]))))
+                            d1[s] = w(valid[s], cand_d1[s], math.inf)
+                            a1[s] = w(valid[s], na1, -1).to(torch.int32)
+                            d2[s] = w(valid[s], nd2, math.inf)
+                            a2[s] = w(valid[s], na2, -1).to(torch.int32)
+                        medoid_inds[cid] = p_idx_h[b]
+                        cost_cur, cost_h = new_cost, new_cost_h
+                        stale = new_stale
+
+                # batch-end repair: the next batch starts from an exact cache
+                if _read(total([st.sum() for st in stale]))[0] > 0:
+                    d2, a2 = repair(a1, d2, a2, stale, medoid_inds)
+                # nothing of this batch's block outlives it
+                Dt = dnew = None
     if sharded:
         return d1, a1, medoid_inds
     return d1[0], a1[0], medoid_inds

@@ -15,6 +15,7 @@ from .kmedoids import _kmedoids_iterations
 from .util import run_timed
 from ..parallel.mesh import resolve_placement
 from ..util.backend import check_random_state
+from ..util.log import trace_region
 
 logger = logging.getLogger(__name__)
 
@@ -73,24 +74,26 @@ def hybrid(X, distance_method, n_iters=5, n_clusters=None,
     device, mesh = resolve_placement(X, device, mesh, small_job_rule=True)
     random_state = check_random_state(random_state)
 
-    result = _kcenters(
-        X, distance_method, n_clusters=n_clusters,
-        dist_cutoff=dist_cutoff, init_centers=init_centers,
-        random_first_center=random_first_center,
-        random_state=(random_state.randint(2 ** 31)
-                      if random_first_center else None),
-        device=device, mesh=mesh)
+    with trace_region('enspara/khybrid.kcenters'):
+        result = _kcenters(
+            X, distance_method, n_clusters=n_clusters,
+            dist_cutoff=dist_cutoff, init_centers=init_centers,
+            random_first_center=random_first_center,
+            random_state=(random_state.randint(2 ** 31)
+                          if random_first_center else None),
+            device=device, mesh=mesh)
 
     if n_iters <= 0:
         return result
 
     metric = util._get_distance_method(distance_method)
-    return _kmedoids_iterations(
-        X, metric, n_iters,
-        list(np.asarray(result.center_indices)),
-        np.asarray(result.assignments),
-        np.asarray(result.distances),
-        random_state=random_state, device=device, mesh=mesh)
+    with trace_region('enspara/khybrid.pam'):
+        return _kmedoids_iterations(
+            X, metric, n_iters,
+            list(np.asarray(result.center_indices)),
+            np.asarray(result.assignments),
+            np.asarray(result.distances),
+            random_state=random_state, device=device, mesh=mesh)
 
 
 def hybrid_device(X, metric='rmsd', n_iters=5, n_clusters=None,
@@ -107,12 +110,16 @@ def hybrid_device(X, metric='rmsd', n_iters=5, n_clusters=None,
     """
     device, mesh = resolve_placement(X, device, mesh, small_job_rule=True)
     xyz = X.xyz if hasattr(X, 'xyz') else X
-    prep = engine.prepare_sharded(xyz, metric, mesh=mesh, device=device)
-    res = engine.kcenters_device(prep, metric, n_clusters=n_clusters,
-                                 dist_cutoff=dist_cutoff, mesh=mesh)
-    m, d, a = kmedoids_sweeps_device(
-        prep, metric, res.assignments, res.distances, res.center_indices,
-        n_sweeps=n_iters, seed=seed, bucket_factor=bucket_factor, mesh=mesh)
+    with trace_region('enspara/khybrid.kcenters'):
+        prep = engine.prepare_sharded(xyz, metric, mesh=mesh,
+                                      device=device)
+        res = engine.kcenters_device(prep, metric, n_clusters=n_clusters,
+                                     dist_cutoff=dist_cutoff, mesh=mesh)
+    with trace_region('enspara/khybrid.pam'):
+        m, d, a = kmedoids_sweeps_device(
+            prep, metric, res.assignments, res.distances,
+            res.center_indices, n_sweeps=n_iters, seed=seed,
+            bucket_factor=bucket_factor, mesh=mesh)
     return util.ClusterResult(center_indices=list(m), assignments=a,
                               distances=d,
                               centers=util.gather_frames(xyz, m))

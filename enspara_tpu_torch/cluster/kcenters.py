@@ -31,6 +31,7 @@ from . import engine, util
 from .util import run_timed
 from ..parallel.mesh import resolve_placement
 from ..util.backend import check_random_state
+from ..util.log import trace_region
 
 logger = logging.getLogger(__name__)
 
@@ -214,9 +215,10 @@ def _kcenters_fast(X, metric, n_clusters, dist_cutoff, init_centers,
         n_init = len(init_center_data)
         # the min-distance frame of each init cluster is its center's
         # index; an init center that owns no frames has none
-        init_ctr_inds = util.find_cluster_centers(init_assignments,
-                                                  init_distances)
-        _reject_ownerless(init_ctr_inds, n_init, init_assignments)
+        with trace_region('enspara/kcenters.init_centers'):
+            init_ctr_inds = util.find_cluster_centers(init_assignments,
+                                                      init_distances)
+            _reject_ownerless(init_ctr_inds, n_init, init_assignments)
 
     res = engine.kcenters_device(
         prep, metric, n_clusters=n_clusters, dist_cutoff=dist_cutoff,

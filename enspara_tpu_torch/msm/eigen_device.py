@@ -27,6 +27,7 @@ import torch
 from ..ops.sparse import dense_on_device, ell_from_sparse, ell_spmm
 from ..ops.sparse import round_up as _bucket
 from ..util.device import full_fp32_matmul, resolve_device
+from ..util.log import trace_region
 from .transition_matrices import assigns_to_counts_device
 from .transition_matrices import eigenspectrum as _eigenspectrum_host
 
@@ -641,33 +642,39 @@ def implied_timescales_batched(assigns, lag_times, n_times=None,
     from ..parallel.mesh import host_fetch, pad_to_multiple, replicated
     from ..ra import to_padded
 
-    padded = to_padded(assigns)
-    a = np.asarray(padded.data, dtype=np.int32)
-    m = np.asarray(padded.mask, dtype=bool)
-    if n_states is None:
-        n_states = int(a[m].max()) + 1
-    if n_times is None:
-        n_times = int(np.floor(n_states / 10.0)) + 1
-    if n_times > n_states - 1:
-        n_times = n_states - 1
-    lags = np.asarray(lag_times, dtype=np.int64)
-    if (lags < 1).any():
-        raise ValueError('lag times must be >= 1, got %s' % (lags,))
-    prior = float(np.float32(0.0 if prior_counts is None else prior_counts))
-    args = (prior, int(n_states), int(n_times), bool(sliding_window))
+    # host work before the first launch, the card idle through it
+    with trace_region('enspara/msm.prepare'):
+        padded = to_padded(assigns)
+        a = np.asarray(padded.data, dtype=np.int32)
+        m = np.asarray(padded.mask, dtype=bool)
+        if n_states is None:
+            n_states = int(a[m].max()) + 1
+        if n_times is None:
+            n_times = int(np.floor(n_states / 10.0)) + 1
+        if n_times > n_states - 1:
+            n_times = n_states - 1
+        lags = np.asarray(lag_times, dtype=np.int64)
+        if (lags < 1).any():
+            raise ValueError('lag times must be >= 1, got %s' % (lags,))
+        prior = float(np.float32(0.0 if prior_counts is None
+                                 else prior_counts))
+        args = (prior, int(n_states), int(n_times), bool(sliding_window))
+        if mesh is None:
+            dev = resolve_device(None, device)
+            a_d = torch.as_tensor(a, device=dev)
+            m_d = torch.as_tensor(m, device=dev)
+        else:
+            # each shard's lags cut on the host, not read back from its
+            # card
+            n_local = pad_to_multiple(max(len(lags), mesh.size),
+                                      mesh.size) // mesh.size
+            lag_pad = np.ones(n_local * mesh.size, np.int64)
+            lag_pad[:len(lags)] = lags
+            a_r, m_r = replicated(a, mesh), replicated(m, mesh)
 
     if mesh is None:
-        dev = resolve_device(None, device)
-        out = _batched_lags(torch.as_tensor(a, device=dev),
-                            torch.as_tensor(m, device=dev), lags, *args)
+        out = _batched_lags(a_d, m_d, lags, *args)
         return out.cpu().numpy().astype(np.float64)
-
-    # each shard's lags cut on the host, not read back from its card
-    n_local = pad_to_multiple(max(len(lags), mesh.size), mesh.size) \
-        // mesh.size
-    lag_pad = np.ones(n_local * mesh.size, np.int64)
-    lag_pad[:len(lags)] = lags
-    a_r, m_r = replicated(a, mesh), replicated(m, mesh)
 
     def solve(s):
         lo = (mesh.first_shard + s) * n_local
