@@ -5,10 +5,10 @@ Run from the root of a checkout, with one CUDA card visible:
 
     python3 chip_smoke.py
 
-It builds the four kernel sources (csrc/kcenters_step.cu with its fp32
-and bf16 entry points, csrc/qcp_update.cu likewise, csrc/qcp_matrix.cu
-and csrc/ell_spmm.cu, one nvcc each, in parallel) from the checkout and
-drives these paths:
+It builds the five kernel sources (csrc/kcenters_step.cu with its fp32
+and bf16 entry points, csrc/qcp_update.cu likewise, csrc/qcp_matrix.cu,
+csrc/ell_spmm.cu and csrc/pam_try.cu, one nvcc each, in parallel) from
+the checkout and drives these paths:
 
 1-3. the k-centers kernel against its plain PyTorch version on the
      card, and the north-star pipeline at full size through the port's
@@ -29,7 +29,12 @@ drives these paths:
      1000 --subsample 10 --random-state 0 (k-centers, then 5 PAM sweeps
      on the QCP kernel), then every one of the 1M frames reassigned to the centers
      (the reassign app, on the QCP kernel). The two .h5 writes of the
-     apps (ra.save) are left out: they need h5py;
+     apps (ra.save) are left out: they need h5py; PAM's tries launch
+     the try kernels (pam_try_eval, pam_try_commit), counted;
+5b.  the PAM try kernels against their plain versions on the same card
+     tensors at the main path's shard, 321,536 frames of which 321,500
+     are real: counts exact, the sum of squares within 1e-12 relative,
+     two evaluations and the commit bit for bit; each timed per call;
 6.   the ELL SpMM kernel against its plain version, bit for bit, at the
      shapes its path gives it (the bucketed ELL of the 100,000-state
      scale point's S with 64 and 128 columns, and an odd 1,000 x 5 x 21
@@ -151,7 +156,8 @@ drives these paths:
      random_state 0) over the mesh and on one device, by stage; (b)
      kmedoids_sweeps_device over the mesh on all 1M of phase 5's frames,
      2 sweeps from a kcenters(mesh=) seed, against one device from the
-     same seed, the cost below the seed's; each held as the same medoids
+     same seed, the cost below the seed's (the try kernels launched
+     once a shard a try in 16a-d); each held as the same medoids
      (then distances on the msd bar, assignments equal but for near
      ties) or, where a swap's gain lay within the float32 rounding of
      the cost sums, final costs within 1e-5; (c) the cluster CLI's
@@ -217,6 +223,7 @@ nvidia-smi line, and the result line {"ok": true, "device": {...}}.
 import contextlib
 import importlib
 import json
+import math
 import os
 import pickle
 import subprocess
@@ -265,6 +272,9 @@ from enspara_tpu_torch.msm import (MSM, MSMs, assigns_to_counts,
                                    transpose_timescales_device)
 from enspara_tpu_torch.ops import _build
 from enspara_tpu_torch.ops.ell_spmm import ell_spmm_kernel, ell_spmm_plain
+from enspara_tpu_torch.ops.pam_try import (pam_try_commit,
+                                           pam_try_commit_plain, pam_try_eval,
+                                           pam_try_eval_plain)
 from enspara_tpu_torch.ops.kcenters_step import (
     KCentersState, kcenters_chunk, kcenters_chunk_plain,
     kcenters_iteration_skip, kcenters_iteration_skip_plain, skip_t_pad,
@@ -300,6 +310,11 @@ QCP_REPLACES = 'enspara_tpu/ops/qcp_pallas.py:111'
 QCP_SHAPES = ((1_048_576, 256, 64), (131_072, 64, 64), (1000, 37, 61))
 # phase 5: trajectories x frames each, atoms, centers, subsample
 N_TRJ, TRJ_FRAMES, CLUSTER_K, SUBSAMPLE = 100, 10_000, 1000, 10
+# phase 5b: the PAM try kernels (they replace no TPU kernel: the JAX
+# sweep's lax.cond try bodies, fused by XLA) at the main path's shard,
+# the benchmark's 321,500 subsampled frames padded to a tile of 256
+PAM_SOURCE = 'enspara_tpu_torch/csrc/pam_try.cu'
+PAM_FRAMES, PAM_PAD = 321_500, 321_536
 ELL_SOURCE = 'enspara_tpu_torch/csrc/ell_spmm.cu'
 ELL_REPLACES = 'enspara_tpu/ops/spmm_pallas.py:125'
 # phases 6-7: the scale point of benchmarks/scale_points.py (states,
@@ -739,7 +754,7 @@ class Stage:
         self.module, self.name = module, name
         self.fn = getattr(module, name)
         self.seconds, self.calls, self.qcp, self.kc = 0.0, 0, 0, 0
-        self.k4 = 0
+        self.k4 = self.pe = self.pc = 0
 
     def __enter__(self):
         def wrapped(*a, **kw):
@@ -747,6 +762,7 @@ class Stage:
             q0 = qcp_matrix.qcp_rmsd_matrix_kernel.n_launches
             k0 = kcenters_chunk.n_launches
             s0 = kcenters_iteration_skip.n_launches
+            e0, c0 = pam_try_eval.n_launches, pam_try_commit.n_launches
             t = time.perf_counter()
             self.result = self.fn(*a, **kw)
             torch.cuda.synchronize()
@@ -755,6 +771,8 @@ class Stage:
             self.qcp += qcp_matrix.qcp_rmsd_matrix_kernel.n_launches - q0
             self.kc += kcenters_chunk.n_launches - k0
             self.k4 += kcenters_iteration_skip.n_launches - s0
+            self.pe += pam_try_eval.n_launches - e0
+            self.pc += pam_try_commit.n_launches - c0
             return self.result
         setattr(self.module, self.name, wrapped)
         return self
@@ -820,6 +838,7 @@ def reassign_path(device, card):
         launches = {'qcp_matrix': qcp_matrix.qcp_rmsd_matrix_kernel.n_launches,
                     'kcenters_step': kcenters_chunk.n_launches,
                     'pam_seconds': pam.seconds, 'pam_syncs': syncs,
+                    'pam_eval': pam.pe, 'pam_commit': pam.pc,
                     # for phase 17: the fit, its input and its launches
                     'args': args, 'data': data, 'result': res,
                     'fit_s': kc.seconds + pam.seconds,
@@ -848,6 +867,7 @@ def reassign_path(device, card):
         check(pam.qcp > 0 and pam.kc == 0,
               'PAM: %d qcp launches, %d k-centers launches'
               % (pam.qcp, pam.kc))
+        try_launches_ok(pam, 'PAM')
         check(asg.qcp > 0, 'reassign launched no qcp kernel')
         r_assig, r_dist = np.asarray(r_assig), np.asarray(r_dist)
         check(r_assig.shape == (N_TRJ, TRJ_FRAMES) and
@@ -877,13 +897,122 @@ def reassign_path(device, card):
           % (n_sub, N_TRJ * TRJ_FRAMES, SUBSAMPLE, CLUSTER_K, cost,
              cost_kc, int(flips.sum()), flips.size))
     print('[%s] load %.4f s; k-centers %.4f s (%d launches); PAM %.4f s '
-          '(5 sweeps, %d host syncs, %d qcp launches); write centers '
+          '(5 sweeps, %d host syncs, %d qcp launches, %d pam_try_eval and '
+          '%d pam_try_commit launches); write centers '
           '%.4f s; reassign %.4f s (load + assign), of which assign '
           '%.4f s = %.4g pairs/s (%d qcp launches)'
           % (card, t_load, kc.seconds, kc.kc, pam.seconds, syncs, pam.qcp,
-             t_write, t_reassign, asg.seconds, pairs / asg.seconds,
+             pam.pe, pam.pc, t_write, t_reassign, asg.seconds, pairs / asg.seconds,
              asg.qcp), flush=True)
     return launches, r_assig
+
+
+def try_launches_ok(pam, what, n_shards=1):
+    """The PAM stage ``pam`` (a Stage) ran the try kernels: evaluations
+    and commits launched, at most one commit an evaluation, each a
+    launch a shard."""
+    check(pam.pe > 0 and pam.pc > 0 and pam.pc <= pam.pe
+          and pam.pe % n_shards == 0 and pam.pc % n_shards == 0,
+          '%s: %d pam_try_eval and %d pam_try_commit launches on %d shards'
+          % (what, pam.pe, pam.pc, n_shards))
+
+
+def pam_try_kernels(device, card):
+    """Phase 5b: the PAM try kernels against their plain versions on the
+    same card tensors, at one shard of PAM_PAD frames of which the first
+    PAM_FRAMES are real (the rest padding at inf / -1): a state whose
+    dnew ties d1 and d2 at a third of the frames each, with a displaced
+    medoid that has members and one that has none. Counts exact, the sum
+    of squares within 1e-12 relative, a second evaluation bit for bit
+    the first, the commit bit for bit; then each timed with its launches
+    queued behind a spin of the card. Returns their numbers."""
+    g = torch.Generator(device=device).manual_seed(19)
+    n, nv, k = PAM_PAD, PAM_FRAMES, CLUSTER_K
+
+    def rand(*shape):
+        return torch.rand(shape, generator=g, device=device)
+
+    a1 = torch.randint(0, k, (n,), generator=g, device=device,
+                       dtype=torch.int32)
+    a2 = (a1 + torch.randint(1, k, (n,), generator=g, device=device,
+                             dtype=torch.int32)) % k
+    d1 = rand(n)
+    d2 = d1 + rand(n)
+    t = rand(n)
+    dnew = torch.where(t < 1 / 3, d1, torch.where(t < 2 / 3, d2,
+                                                  2 * rand(n)))
+    stale = rand(n) < 0.1
+    for x, fill in ((d1, math.inf), (d2, math.inf), (a1, -1), (a2, -1),
+                    (stale, False)):
+        x[nv:] = fill
+    out = {}
+    for what, cid in (('members', int(a1[0])), ('no members', k)):
+        e0 = pam_try_eval.n_launches
+        got = pam_try_eval(d1, a1, d2, a2, dnew, stale, cid, nv)
+        again = pam_try_eval(d1, a1, d2, a2, dnew, stale, cid, nv)
+        want = pam_try_eval_plain(d1, a1, d2, a2, dnew, stale, cid, nv)
+        torch.cuda.synchronize()
+        check(pam_try_eval.n_launches == e0 + 2,
+              '5b: pam_try_eval made %d launches for 2 calls'
+              % (pam_try_eval.n_launches - e0))
+        got_h, want_h = got.tolist(), want.tolist()
+        rel = abs(got_h[2] - want_h[2]) / want_h[2]
+        check(got_h[:2] == want_h[:2] and rel <= 1e-12,
+              '5b (%s): pam_try_eval %r against plain %r'
+              % (what, got_h, want_h))
+        check(torch.equal(got, again), '5b (%s): two evaluations differ'
+              % what)
+        mine = [x.clone() for x in (d1, a1, d2, a2, stale)]
+        ref = [x.clone() for x in (d1, a1, d2, a2, stale)]
+        c0 = pam_try_commit.n_launches
+        pam_try_commit(*mine[:4], dnew, mine[4], cid, nv)
+        pam_try_commit_plain(*ref[:4], dnew, ref[4], cid, nv)
+        torch.cuda.synchronize()
+        check(pam_try_commit.n_launches == c0 + 1,
+              '5b: pam_try_commit made %d launches for 1 call'
+              % (pam_try_commit.n_launches - c0))
+        check(all(torch.equal(x, y) for x, y in zip(mine, ref)),
+              '5b (%s): pam_try_commit differs from plain' % what)
+        # frames that become stale: the commit's one conditional write
+        n_new = int((mine[4] & ~stale).sum())
+        out[what] = (got_h, rel, n_new)
+    cid = int(a1[0])
+    work = [x.clone() for x in (d1, a1, d2, a2, stale)]
+    ms = {
+        'eval': queued_ms(lambda: pam_try_eval(
+            d1, a1, d2, a2, dnew, stale, cid, nv), 200),
+        'eval_plain': queued_ms(lambda: pam_try_eval_plain(
+            d1, a1, d2, a2, dnew, stale, cid, nv), 10),
+        'commit': queued_ms(lambda: pam_try_commit(
+            *work[:4], dnew, work[4], cid, nv), 200),
+        'commit_plain': queued_ms(lambda: pam_try_commit_plain(
+            *work[:4], dnew, work[4], cid, nv), 10)}
+    # eval reads d1, a1, d2, a2, dnew (4 B each) and stale (1 B) of the
+    # real frames; commit reads the first five of the real frames,
+    # writes d1, a1, d2, a2 of every frame and stale where a point
+    # becomes stale (the members case's count)
+    be = bound(21 * nv, 0)
+    bc = bound(20 * nv + 16 * n + out['members'][2], 0)
+    nums = {'eval': {'max_rel_err': max(v[1] for v in out.values()),
+                     'ms': ms['eval'], 'plain_ms': ms['eval_plain'],
+                     'bound_ms': be[0], 'bound_by': be[1],
+                     'library_ms': None},
+            'commit': {'max_abs_err': 0.0, 'ms': ms['commit'],
+                       'plain_ms': ms['commit_plain'], 'bound_ms': bc[0],
+                       'bound_by': bc[1], 'library_ms': None}}
+    print('5b PAM try kernels at %d frames (%d real) against their plain '
+          'versions on the card: counts equal, sum of squares within %.3g '
+          'relative, two evaluations bit for bit, the commit bit for bit '
+          '(a displaced medoid with members: %d frames became stale; one '
+          'with none)' % (n, nv, nums['eval']['max_rel_err'],
+                          out['members'][2]))
+    print('[%s] 5b per call, queued: pam_try_eval %.4f ms (bound %.4f ms, '
+          '%s, %.1f%% of it; plain %.4f ms), pam_try_commit %.4f ms (bound '
+          '%.4f ms, %.1f%% of it; plain %.4f ms)'
+          % (card, ms['eval'], be[0], be[1], 100 * be[0] / ms['eval'],
+             ms['eval_plain'], ms['commit'], bc[0],
+             100 * bc[0] / ms['commit'], ms['commit_plain']), flush=True)
+    return nums
 
 
 def bound(n_bytes, n_ops):
@@ -924,6 +1053,7 @@ def reset_launches():
         fn.n_launches = fn.n_bf16_launches = 0
     qcp_matrix.qcp_rmsd_matrix_kernel.n_launches = 0
     ell_spmm_kernel.n_launches = 0
+    pam_try_eval.n_launches = pam_try_commit.n_launches = 0
 
 
 def scale_point():
@@ -4158,6 +4288,8 @@ def khybrid_mesh_check(X, mesh, device, card, phase5):
     check(pam_m.qcp > 0 and pam_m.qcp % mesh.size == 0 and pam_1.qcp > 0,
           '16a: kernel 5 launches in PAM: mesh %d, one device %d'
           % (pam_m.qcp, pam_1.qcp))
+    try_launches_ok(pam_m, '16a mesh', mesh.size)
+    try_launches_ok(pam_1, '16a one device')
     for r, kc in ((res_m, kc_m), (res_1, kc_1)):
         ctr = np.asarray(r.center_indices)
         check(len(set(ctr.tolist())) == CLUSTER_K, '16a: %d distinct '
@@ -4174,13 +4306,15 @@ def khybrid_mesh_check(X, mesh, device, card, phase5):
           'device: k-centers seeds differ at %d centers; PAM %s'
           % (len(X), N_ATOMS, CLUSTER_K, mesh.size, seeds, verdict))
     print('[%s] 16a KHybrid over the mesh: k-centers %.4f s (%d kernel 4 '
-          'launches), PAM %.4f s (%d host syncs, %d kernel 5 launches); one '
-          'device: k-centers %.4f s, PAM %.4f s (%d host syncs, %d kernel 5 '
-          'launches); phase 5 in this run: PAM %.4f s, %d host syncs'
-          % (card, kc_m.seconds, k4_m, pam_m.seconds, sy_m, pam_m.qcp,
-             kc_1.seconds, pam_1.seconds, sy_1, pam_1.qcp,
-             phase5['pam_seconds'], phase5['pam_syncs']), flush=True)
-    return pam_m.qcp, tuple(np.asarray(v) for v in (
+          'launches), PAM %.4f s (%d host syncs, %d kernel 5 launches, %d '
+          'pam_try_eval, %d pam_try_commit); one device: k-centers %.4f s, '
+          'PAM %.4f s (%d host syncs, %d kernel 5 launches, %d pam_try_eval, '
+          '%d pam_try_commit); phase 5 in this run: PAM %.4f s, %d host '
+          'syncs' % (card, kc_m.seconds, k4_m, pam_m.seconds, sy_m,
+                     pam_m.qcp, pam_m.pe, pam_m.pc, kc_1.seconds,
+                     pam_1.seconds, sy_1, pam_1.qcp, pam_1.pe, pam_1.pc,
+                     phase5['pam_seconds'], phase5['pam_syncs']), flush=True)
+    return pam_m.qcp, (pam_m.pe, pam_m.pc), tuple(np.asarray(v) for v in (
         res_m.center_indices, res_m.assignments, res_m.distances))
 
 
@@ -4207,12 +4341,18 @@ def sweeps_mesh_check(X, mesh, device, card):
         torch.cuda.synchronize()
         out[name] = (res, time.perf_counter() - t,
                      engine_kmedoids._pam_sweeps.n_host_syncs,
-                     qcp_matrix.qcp_rmsd_matrix_kernel.n_launches)
+                     qcp_matrix.qcp_rmsd_matrix_kernel.n_launches,
+                     (pam_try_eval.n_launches, pam_try_commit.n_launches))
         del prep
         torch.cuda.empty_cache()
-    (rm, tm, sm, qm), (r1, t1, s1, q1) = out.values()
+    (rm, tm, sm, qm, pm), (r1, t1, s1, q1, p1) = out.values()
     check(qm > 0 and qm % mesh.size == 0 and q1 > 0,
           '16b: kernel 5 launches: mesh %d, one device %d' % (qm, q1))
+    for (pe, pc), n_shards, what in ((pm, mesh.size, 'mesh'),
+                                     (p1, 1, 'one device')):
+        check(pe > 0 and 0 < pc <= pe and pe % n_shards == 0
+              and pc % n_shards == 0, '16b %s: %d pam_try_eval and %d '
+              'pam_try_commit launches' % (what, pe, pc))
     c0 = pam_cost(seed.distances)
     check(pam_cost(rm[1]) <= c0 and pam_cost(r1[1]) <= c0,
           '16b: the sweeps raised the cost above the seed\'s %r' % c0)
@@ -4222,9 +4362,11 @@ def sweeps_mesh_check(X, mesh, device, card):
           'seed cost %.9g' % (len(X), N_ATOMS, CLUSTER_K, MESH_SWEEPS,
                               mesh.size, verdict, c0))
     print('[%s] 16b sweeps over the mesh %.4f s (%d host syncs, %d kernel 5 '
-          'launches); one device %.4f s (%d host syncs, %d kernel 5 '
-          'launches)' % (card, tm, sm, qm, t1, s1, q1), flush=True)
-    return qm, (np.asarray(seed.center_indices),) + tuple(rm)
+          'launches, %d pam_try_eval, %d pam_try_commit); one device %.4f s '
+          '(%d host syncs, %d kernel 5 launches, %d pam_try_eval, %d '
+          'pam_try_commit)' % (card, tm, sm, qm, *pm, t1, s1, q1, *p1),
+          flush=True)
+    return qm, pm, (np.asarray(seed.center_indices),) + tuple(rm)
 
 
 def _free_port():
@@ -4295,6 +4437,7 @@ def job_worker(rank, d):
                    'loop': loop.seconds, 'pam': pam.seconds,
                    'write': t_write, 'barrier': t_end, 'wrote': wrote,
                    'syncs': syncs, 'k4': k4, 'qcp': pam.qcp,
+                   'pe': pam.pe, 'pc': pam.pc,
                    'backend': dist.get_backend(mesh.group),
                    'bits': [int(bits.sum()), *bits[:3].tolist()],
                    'profile': profile}, f)
@@ -4424,6 +4567,15 @@ def job_check(device, card, label='16c', n_procs=JOB_PROCS,
         for k in range(torch.cuda.device_count()):
             torch.cuda.synchronize(k)
         t_ref = time.perf_counter() - t
+        # each process evaluates and commits its one shard of the tries
+        # the in-process run makes on all of them
+        tries = [(st['pe'], st['pc']) for st in stages]
+        check(tries[0][0] > 0 and 0 < tries[0][1] <= tries[0][0]
+              and tries == [tries[0]] * n_procs
+              and (ref_pam.pe, ref_pam.pc) == (n_procs * tries[0][0],
+                                               n_procs * tries[0][1]),
+              '%s: pam_try_eval, pam_try_commit launches a process %s, '
+              'in-process %d, %d' % (label, tries, ref_pam.pe, ref_pam.pc))
         for r in range(n_procs):
             got = np.load(os.path.join(d, 'res%d.npz' % r))
             check(np.array_equal(got['ctr'], np.asarray(ref.center_indices))
@@ -4458,18 +4610,20 @@ def job_check(device, card, label='16c', n_procs=JOB_PROCS,
     for r, st in enumerate(stages):
         print('[%s] %s process %d: join %.4f s, load %.4f s, k-centers %.4f '
               's (the loop %.4f s, %.4f ms an iteration; %d kernel 4 '
-              'launches), PAM %.4f s (%d host syncs, %d kernel 5 launches), '
-              'write %.4f s, barrier %.4f s'
+              'launches), PAM %.4f s (%d host syncs, %d kernel 5 launches, '
+              '%d pam_try_eval, %d pam_try_commit), write %.4f s, barrier '
+              '%.4f s'
               % (cards, label, r, st['join'], st['load'], st['kcenters'],
                  st['loop'], 1e3 * st['loop'] / CLUSTER_K, st['k4'],
-                 st['pam'], st['syncs'], st['qcp'], st['write'],
-                 st['barrier']))
+                 st['pam'], st['syncs'], st['qcp'], st['pe'], st['pc'],
+                 st['write'], st['barrier']))
     print('[%s] %s job %.4f s from launch to exit; in-process %s fit %.4f '
           's: the loop %.4f s (%.4f ms an iteration), PAM %.4f s (%d kernel 5 '
           'launches)' % (cards, label, t_job, ref_mesh, t_ref,
                          ref_loop.seconds, 1e3 * ref_loop.seconds / CLUSTER_K,
                          ref_pam.seconds, ref_pam.qcp), flush=True)
     return {'qcp': stages[0]['qcp'], 'k4': stages[0]['k4'],
+            'try': (stages[0]['pe'], stages[0]['pc']),
             'loop_ms': 1e3 * stages[0]['loop'] / CLUSTER_K,
             'pam': stages[0]['pam'], 'profile': stages[0]['profile']}
 
@@ -4487,15 +4641,15 @@ def mesh_pam_path(device, card, phase5):
     mesh = FrameMesh((device,) * N_SHARDS)
     X = phase5_data()
     launches, results = {}, {}
-    launches['16a'], results['16a'] = khybrid_mesh_check(
-        subsampled(X), mesh, device, card, phase5)
+    launches['16a'], launches['16a_try'], results['16a'] = \
+        khybrid_mesh_check(subsampled(X), mesh, device, card, phase5)
     torch.cuda.empty_cache()
-    launches['16b'], results['16b'] = sweeps_mesh_check(X, mesh, device,
-                                                        card)
+    launches['16b'], launches['16b_try'], results['16b'] = \
+        sweeps_mesh_check(X, mesh, device, card)
     del X
     torch.cuda.empty_cache()
     gloo = job_check(device, card)
-    launches['16c'] = gloo['qcp']
+    launches['16c'], launches['16c_try'] = gloo['qcp'], gloo['try']
     n_cards = torch.cuda.device_count()
     if n_cards < 2:
         print('16d: %d CUDA device visible; the cluster CLI in one process '
@@ -4503,7 +4657,7 @@ def mesh_pam_path(device, card, phase5):
     else:
         nccl = job_check(device, card, '16d', min(CARD_JOB_PROCS, n_cards),
                          N_TRJ, own_cards=True)
-        launches['16d'] = nccl
+        launches['16d'], launches['16d_try'] = nccl, nccl['try']
         prof = nccl['profile']
         print('[%s] 16d against 16c (gloo, %d processes on cuda:0, %d '
               'files): the loop %.4f ms an iteration against %.4f ms, PAM '
@@ -4729,16 +4883,16 @@ def default_mesh_path(device, card, single, t_single, phase2_launches,
                                   mesh=mesh)['result']}
     X = phase5_data()
     on_cards['16a'] = khybrid_mesh_check(subsampled(X), mesh, device, card,
-                                         phase5)[1]
-    on_cards['16b'] = sweeps_mesh_check(X, mesh, device, card)[1]
+                                         phase5)[-1]
+    on_cards['16b'] = sweeps_mesh_check(X, mesh, device, card)[-1]
     if mesh.size != N_SHARDS:
         vmesh = FrameMesh((device,) * mesh.size)
         virtual = {
             '9': sharded_path(device, frames, single, t_single, card,
                               mesh=vmesh)['result'],
             '16a': khybrid_mesh_check(subsampled(X), vmesh, device, card,
-                                      phase5)[1],
-            '16b': sweeps_mesh_check(X, vmesh, device, card)[1]}
+                                      phase5)[-1],
+            '16b': sweeps_mesh_check(X, vmesh, device, card)[-1]}
     for part in ('9', '16a', '16b'):
         same_bits(on_cards[part], virtual[part],
                   'phase %s over %d cards' % (part, n_cards))
@@ -4813,12 +4967,13 @@ def main():
     device = require_cuda()
     torch.backends.cuda.matmul.allow_tf32 = False
     t = time.perf_counter()
-    sources = ('kcenters_step', 'qcp_update', 'qcp_matrix', 'ell_spmm')
+    sources = ('kcenters_step', 'qcp_update', 'qcp_matrix', 'ell_spmm',
+               'pam_try')
     _build.build(*sources)
     for name in sources:
         _build.load_library(name)
-    print('built %s, %s, %s and %s in %.3f s (nvcc %s)'
-          % (SOURCE, UPDATE_SOURCE, QCP_SOURCE, ELL_SOURCE,
+    print('built %s, %s, %s, %s and %s in %.3f s (nvcc %s)'
+          % (SOURCE, UPDATE_SOURCE, QCP_SOURCE, ELL_SOURCE, PAM_SOURCE,
              time.perf_counter() - t, ' '.join(_build.NVCC_FLAGS)),
           flush=True)
 
@@ -4927,6 +5082,8 @@ def main():
 
     # -- 5. cluster -> reassign through the apps at full size --------------
     path, labels = reassign_path(device, card)
+    pam_try_nums = pam_try_kernels(device, card)
+    torch.cuda.empty_cache()
 
     # -- 6. the ELL SpMM kernel and its plain version ----------------------
     T, pi, S = scale_point()
@@ -5008,7 +5165,9 @@ def main():
           'tri_skip=False qcp_update %d; PAM over the 4-shard mesh '
           'qcp_matrix %d (KHybrid at phase 5\'s scale), %d (1M sweeps); '
           'two-process CLI qcp_matrix %d a process; %s32M assignment '
-          'qcp_matrix %d'
+          'qcp_matrix %d; PAM tries pam_try_eval, pam_try_commit %d, %d '
+          '(cluster -> reassign), %d, %d (16a), %d, %d (16b), %d, %d a '
+          'process (16c)%s'
           % (launches, noskip_launches, path['kcenters_step'],
              path['qcp_matrix'], ell_launches, its_launches,
              sharded['kcenters_iteration_skip'], sharded['qcp_update'],
@@ -5018,7 +5177,11 @@ def main():
              'one-process-a-card CLI kcenters_iteration_skip %d, qcp_matrix '
              '%d a process; ' % (mesh_pam['16d']['k4'],
                                  mesh_pam['16d']['qcp'])
-             if '16d' in mesh_pam else '', big_launches))
+             if '16d' in mesh_pam else '', big_launches,
+             path['pam_eval'], path['pam_commit'], *mesh_pam['16a_try'],
+             *mesh_pam['16b_try'], *mesh_pam['16c_try'],
+             ', %d, %d a process (16d)' % mesh_pam['16d_try']
+             if '16d' in mesh_pam else ''))
 
     print(json.dumps({'kernels': [{
         'name': 'kcenters_step', 'route': 'cuda', 'source': SOURCE,
@@ -5050,7 +5213,13 @@ def main():
         **bf16['3']}, {
         'name': 'kcenters_iteration_skip_bf16', 'route': 'cuda',
         'source': SOURCE, 'replaces': BF16_REPLACES['4'],
-        'launches': bf16_launches['4'], **bf16['4']}]}))
+        'launches': bf16_launches['4'], **bf16['4']}, {
+        'name': 'pam_try_eval', 'route': 'cuda', 'source': PAM_SOURCE,
+        'replaces': None, 'launches': path['pam_eval'],
+        **pam_try_nums['eval']}, {
+        'name': 'pam_try_commit', 'route': 'cuda', 'source': PAM_SOURCE,
+        'replaces': None, 'launches': path['pam_commit'],
+        **pam_try_nums['commit']}]}))
     print(card)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

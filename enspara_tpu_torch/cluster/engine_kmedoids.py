@@ -18,8 +18,14 @@ batch end.
 
 Every ``lax.cond``/``fori_loop`` of the JAX sweep is Python control
 flow here, deciding on a device scalar read back to the host:
-``n_host_syncs`` counts those reads. Under ``torch.profiler`` each read
-is an ``enspara/pam.read`` span (``util.log.trace_region``), inside
+``n_host_syncs`` counts those reads, two a batch and one a tried
+proposal, a second only after an on-demand repair (``n_reevals``
+counts those tries). A try is two launches a shard on the card
+(``ops/pam_try.py``): one evaluation that reduces the counts deciding a
+repair and the post-swap sum of squares to three numbers, and one
+commit that updates the state in place; the new medoid is copied into
+``medoid_inds`` from the card, so that no host value is written there.
+Under ``torch.profiler`` each read is an ``enspara/pam.read`` span (``util.log.trace_region``), inside
 the ``enspara/pam.batch`` span of its batch, as are the
 ``enspara/pam.try`` and ``enspara/pam.repair`` spans.
 
@@ -52,6 +58,7 @@ import numpy as np
 import torch
 
 from . import engine
+from ..ops.pam_try import pam_try_commit, pam_try_eval
 from ..parallel.mesh import FrameMesh, host_fetch, resolve_placement
 from ..parallel.ops import argmax_over_shards, owned_rows
 from ..util.log import trace_region
@@ -145,7 +152,6 @@ def _pam_sweeps(prep, d1, a1, medoid_inds, sweep_bits, bucket, batch=64,
                              'out for (%d shards)' % prep.n_shards)
         shards, n_local = prep.shards, prep.n_local
         first = prep.first_shard
-        d1, a1 = list(d1), list(a1)
     else:
         shards, n_local, first = (prep,), prep.n_pad, 0
         mesh = FrameMesh((prep.device,))
@@ -158,6 +164,10 @@ def _pam_sweeps(prep, d1, a1, medoid_inds, sweep_bits, bucket, batch=64,
     n_pad = n_local * mesh.size
     valid = [torch.arange(starts[s], starts[s] + n_local, device=devs[s])
              < n_valid for s in S]
+    # each shard's real frames, a prefix of it
+    n_real = [min(n_local, max(0, n_valid - starts[s])) for s in S]
+    # the commits update the state in place, never the caller's tensors
+    d1, a1 = [t.clone() for t in d1], [t.clone() for t in a1]
     medoid_inds = torch.as_tensor(medoid_inds, dtype=torch.long,
                                   device=lead).clone()
     k = int(medoid_inds.shape[0])
@@ -183,6 +193,16 @@ def _pam_sweeps(prep, d1, a1, medoid_inds, sweep_bits, bucket, batch=64,
     def sq_sums(ds):
         return [torch.where(valid[s], ds[s] * ds[s], 0.0).sum(
             dtype=torch.float64) for s in S]
+
+    def evaluate(d2, a2, stale, dnew, cid):
+        """The try's one host read: the counts that decide a repair
+        (stale members of ``cid``, ``stale | unc``) over the mesh, and
+        the post-swap cost as a device scalar and its host value."""
+        tot = total([pam_try_eval(d1[s], a1[s], d2[s], a2[s], dnew[s],
+                                  stale[s], cid, n_real[s]) for s in S])
+        new_cost = tot[2].float() / n_valid
+        n_ms, n_su, _, new_cost_h = _read(tot, new_cost)
+        return n_ms, n_su, new_cost, new_cost_h
 
     # ---- the exact second-nearest cache from the warm start: chunked
     # (n, 64) blocks, running min over every medoid but a point's own
@@ -278,10 +298,9 @@ def _pam_sweeps(prep, d1, a1, medoid_inds, sweep_bits, bucket, batch=64,
                 # at batch start, a pre-filter once accepts move the cache
                 est0 = cost([_screen(member0[s], d1[s], d2[s], Dt[s], valid[s])
                              for s in S])
-                vals = _read(cost_cur, est0, sampled_ok, p_idxs)
+                vals = _read(cost_cur, est0, sampled_ok)
                 cost_h = vals[0]
-                est0_h, ok_h = vals[1:B + 1], vals[B + 1:2 * B + 1]
-                p_idx_h = [int(v) for v in vals[2 * B + 1:]]
+                est0_h, ok_h = vals[1:B + 1], vals[B + 1:]
 
                 stale = [torch.zeros(n_local, dtype=torch.bool, device=dv)
                          for dv in devs]
@@ -291,57 +310,27 @@ def _pam_sweeps(prep, d1, a1, medoid_inds, sweep_bits, bucket, batch=64,
                         continue
                     with trace_region('enspara/pam.try'):
                         dnew = [Dt[s][b] for s in S]
-                        members = [(a1[s] == cid) & valid[s] for s in S]
-                        # points whose (d2, a2) the swap would leave inexact
-                        unc = [(members[s] | (a2[s] == cid))
-                               & (dnew[s] > d2[s]) & valid[s] for s in S]
+                        n_ms, n_su, new_cost, new_cost_h = evaluate(
+                            d2, a2, stale, dnew, cid)
                         # repair on demand: a stale member's d2 would make the
                         # post-swap d1 inexact, and an over-budget stale set
-                        # could not be repaired later
-                        n_ms, n_su = _read(total([torch.stack((
-                            (members[s] & stale[s]).sum(),
-                            (stale[s] | unc[s]).sum())) for s in S]))
+                        # could not be repaired later; the repair empties the
+                        # stale set, so the second n_su counts unc alone
                         if n_ms > 0 or n_su > bucket:
                             d2, a2 = repair(a1, d2, a2, stale, medoid_inds)
                             stale = [torch.zeros_like(st) for st in stale]
-                            unc = [(members[s] | (a2[s] == cid))
-                                   & (dnew[s] > d2[s]) & valid[s] for s in S]
-
-                        cand_d1 = [torch.where(members[s],
-                                               torch.minimum(d2[s], dnew[s]),
-                                               torch.minimum(d1[s], dnew[s]))
-                                   for s in S]
-                        new_stale = [stale[s] | unc[s] for s in S]
-                        tot = total([torch.stack((p, st.sum().double()))
-                                     for p, st in zip(sq_sums(cand_d1),
-                                                      new_stale)])
-                        new_cost = tot[0].float() / n_valid
-                        new_cost_h, n_stale = _read(new_cost, tot[1])
-                        if not (new_cost_h < cost_h and n_stale <= bucket):
+                            _pam_sweeps.n_reevals += 1
+                            n_ms, n_su, new_cost, new_cost_h = evaluate(
+                                d2, a2, stale, dnew, cid)
+                        if not (new_cost_h < cost_h and n_su <= bucket):
                             continue
-
-                        # commit: d1/a1 exact in every case; d2/a2 exact unless
-                        # flagged stale, upper bounds until the next repair
-                        w = torch.where
+                        # commit, in place; the new medoid is copied from
+                        # the card (a host int written there would sync)
                         for s in S:
-                            in1, in2 = dnew[s] < d1[s], dnew[s] < d2[s]
-                            caseB = a1[s] == cid     # nearest displaced
-                            caseC = a2[s] == cid     # second-nearest displaced
-                            na1 = w(caseB, w(in2, cid, a2[s]),
-                                    w(in1, cid, a1[s]))
-                            nd2 = w(caseB, torch.maximum(dnew[s], d2[s]),
-                                    w(caseC, torch.maximum(dnew[s], d1[s]),
-                                      w(in1, d1[s], w(in2, dnew[s], d2[s]))))
-                            na2 = w(caseB, w(in2, a2[s], cid),
-                                    w(caseC, w(in1, a1[s], cid),
-                                      w(in1, a1[s], w(in2, cid, a2[s]))))
-                            d1[s] = w(valid[s], cand_d1[s], math.inf)
-                            a1[s] = w(valid[s], na1, -1).to(torch.int32)
-                            d2[s] = w(valid[s], nd2, math.inf)
-                            a2[s] = w(valid[s], na2, -1).to(torch.int32)
-                        medoid_inds[cid] = p_idx_h[b]
+                            pam_try_commit(d1[s], a1[s], d2[s], a2[s],
+                                           dnew[s], stale[s], cid, n_real[s])
+                        medoid_inds[cid] = p_idxs[b]
                         cost_cur, cost_h = new_cost, new_cost_h
-                        stale = new_stale
 
                 # batch-end repair: the next batch starts from an exact cache
                 if _read(total([st.sum() for st in stale]))[0] > 0:
@@ -353,9 +342,11 @@ def _pam_sweeps(prep, d1, a1, medoid_inds, sweep_bits, bucket, batch=64,
     return d1[0], a1[0], medoid_inds
 
 
-# host reads of device scalars made by _pam_sweeps (one per lax.cond
-# of the JAX sweep that had to be decided on the host, plus one per batch)
+# host reads of device scalars made by _pam_sweeps: two a batch, one a
+# tried proposal, and one more for each try whose first evaluation an
+# on-demand repair made stale (n_reevals)
 _pam_sweeps.n_host_syncs = 0
+_pam_sweeps.n_reevals = 0
 
 
 def sweep_bits(seed, n_sweeps, n, device):
