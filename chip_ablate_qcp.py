@@ -15,8 +15,10 @@ PAM block: three rounds of CUDA events around 10 and 50 launches, and
 the largest difference from the shipped kernel's output. The variants:
 
 - ``shipped``;
-- ``no_epilogue``: the Newton epilogue replaced by the sum of the nine S
-  components, so the time is the contraction's and the staging's;
+- ``no_epilogue``: the Newton epilogue replaced by the magnitude of the
+  sum of the nine S components, no pair flagged for the finish pass, so
+  the time is the contraction's, the staging's and the finish pass's
+  read of the block;
 - ``one_pass``: hi x hi alone instead of the three 3xTF32 passes
   (wrong by design; the difference is the tensor-core time of two
   passes);
@@ -48,9 +50,10 @@ SOURCES = ('qcp_matrix.cu', 'mma_tf32.cuh', 'qcp_rmsd.cuh')
 SHAPES = ((1_048_576, 256, 64, 10), (131_072, 64, 64, 50))
 ROUNDS = 3
 
-NO_EPILOGUE = [('d[e2] = qcp_rmsd(S, gfr[h] + (e2 ? gcv.y : gcv.x), n_atoms);',
-                'd[e2] = S[0] + S[1] + S[2] + S[3] + S[4] + S[5] + S[6] + '
-                'S[7] + S[8];')]
+NO_EPILOGUE = [('d[e2] = qcp_rmsd_flagged(S, gfr[h] + (e2 ? gcv.y : gcv.x), '
+                'n_atoms,\n                                 near);',
+                'd[e2] = fabsf(S[0] + S[1] + S[2] + S[3] + S[4] + S[5] + '
+                'S[6] + S[7] + S[8]);\n        near = false;')]
 ONE_PASS = [('mma_tf32(acc[3 * i + j][nt], a_lo, b_hi[j][nt]);', ';'),
             ('mma_tf32(acc[3 * i + j][nt], a_hi, b_lo[j][nt]);', ';')]
 NO_TURNS = [('bar_sync(kTokenBar + group, kThreads);',

@@ -23,6 +23,13 @@ the checkout and drives these paths:
      64 PAM proposal block, a 1,000 x 37 x 61-atom padding shape), then
      on self pairs (centers that are frames: the msd near 0, no argmin
      flip);
+4b.  structures that barely align (65,536 unit-normal frames of 39
+     atoms): farthest-first to 16 centers with kernel 1 on the card and
+     kernel 4 over a 4-shard mesh of it, each pick, label and distance
+     within 1e-4 in msd of float64 Kabsch; kernel 1 and kernels 4 and 3
+     against their plain versions there; kernel 5 on 4,096 of the
+     frames x 64 unit-normal centers against its plain version and
+     Kabsch;
 5.   the cluster -> reassign workflow through the port's apps: 100 XTC
      trajectories x 10,000 frames of 64 CA atoms (metastable-basin
      data, seed 1) clustered with --algorithm khybrid --cluster-number
@@ -285,7 +292,8 @@ from enspara_tpu_torch.ops.qcp_update import (kcenters_iteration,
 from enspara_tpu_torch.cards.featurizers import RotamerFeaturizer
 from enspara_tpu_torch.parallel import FrameMesh, frame_mesh
 from enspara_tpu_torch.parallel import mesh as pmesh
-from enspara_tpu_torch.ops.qcp import rmsd_from_S_components_unrolled
+from enspara_tpu_torch.ops.qcp import (kabsch_rmsd_np,
+                                       rmsd_from_S_components_unrolled)
 from enspara_tpu_torch.ops.sparse import dense_on_device
 from enspara_tpu_torch.tpt import committors, mfpts, net_fluxes, paths
 from enspara_tpu_torch.tpt import core as tpt_core
@@ -349,12 +357,20 @@ HBM_RATE, FP32_RATE, TF32_RATE = 3.35e12, 67e12, 495e12
 # add, subtract, multiply, divide, sqrt, min, max, abs and compare-select
 # one, an FMA two. Squares 9; fnorm2 8; det 14; C2, C1 2; the eight sums
 # and differences 8; D 4; e1 4; e2 4; E 3; F, G, H, I 9 each (36); C0 5;
-# lam0 1; inv (max, divide) 2; inv2 1; c2, c1, c0 5; 12 Newton steps of
-# 18 (u2 1, p 6, dp 5, den 2, step 3, u 1) = 216; clamp 2; msd and sqrt
-# 6: 330 in all
-QCP_EPILOGUE_OPS = 330
+# lam0 1; inv (max, divide) 2; inv2 1; c2, c1, c0 5; Newton's start
+# (3 fnorm2, sqrt, the margin, inv, min) 5; 12 Newton steps of 19 (u2 1,
+# p 6, dp 5, den 2, the bias 1, step 3, u 1) = 228; the near-double test
+# and its sign 8; clamp 2; msd and sqrt 6: 355 in all. The float64
+# finish of the ~5e-5 of pairs the test flags is left out
+QCP_EPILOGUE_OPS = 355
 # phase 4's self-pair block (frames, centers, atoms)
 QCP_SELF = (131_072, 64, 64)
+# phase 4b, structures that barely align (unit-normal coordinates, where
+# 12 Newton steps from u = 1 fall short of the root): frames, atoms, the
+# farthest-first picks and kernel 5's centers held against float64
+# Kabsch, the frames of kernel 5's block, and the bar on the msd
+BARE_FRAMES, BARE_ATOMS, BARE_PICKS = 65_536, 39, 16
+BARE_QCP_FRAMES, BARE_QCP_CENTERS, BARE_BAR = 4096, 64, 1e-4
 # phase 10, the analysis path on phase 5's labels: the flags of the
 # implied CLI's batched run (its defaults) and of its host run, the MSM
 # lag, bootstrap trials, BACE macrostates and KMC steps; then BASELINE
@@ -710,6 +726,94 @@ def qcp_self_pairs(device, F, C, A, seed):
             '%.3g), plain %.3g; max |kernel - plain| %.3g'
             % (F, C, A, float(own.max()), bar(0.0), float(p.diagonal().max()),
                float((k - p).abs().max())))
+
+
+def barely_aligned(device, card):
+    """Phase 4b: kernels 1, 4 and 5 on unit-normal structures, which
+    barely align (the pairs farthest-first k-centers picks), against
+    their plain versions and against float64 Kabsch: farthest-first to
+    BARE_PICKS centers on one card (kernel 1) and over a 4-shard mesh
+    of it (kernel 4), each pick the farthest frame, each label the
+    nearest center and each distance Kabsch's, within BARE_BAR in msd;
+    the chunk kernel against the plain chunk and kernels 4 and 3 against
+    theirs from the state its 8 iterations leave; kernel 5 on a block of
+    frames and other unit-normal centers against its plain version (the
+    msd bar) and Kabsch (BARE_BAR). Returns the largest gap to Kabsch."""
+    rng = np.random.default_rng(29)
+    X = rng.normal(size=(BARE_FRAMES, BARE_ATOMS, 3)).astype(np.float32)
+    Xd = X.astype(np.float64)
+    worst = 0.0
+    for what, kw, kern in (
+            ('kernel 1', dict(device=device), kcenters_chunk),
+            ('kernel 4', dict(mesh=FrameMesh((device,) * N_SHARDS)),
+             kcenters_iteration_skip)):
+        n0 = kern.n_launches
+        res = engine.kcenters_device_fused(X, n_clusters=BARE_PICKS, **kw)
+        check(kern.n_launches > n0, '%s: no launch' % what)
+        ctr = np.asarray(res.center_indices)
+        D = np.stack([kabsch_rmsd_np(Xd, Xd[c]) ** 2 for c in ctr], axis=1)
+        near = np.minimum.accumulate(D, axis=1)
+        picks = near[:, :-1].max(0) - near[ctr[1:], np.arange(BARE_PICKS
+                                                              - 1)]
+        at = D[np.arange(len(X)), np.asarray(res.assignments)]
+        gaps = (float(picks.max()), float((at - D.min(1)).max()),
+                float(np.abs(np.asarray(res.distances) ** 2 - at).max()))
+        worst = max(worst, *gaps)
+        check(max(gaps) <= BARE_BAR, '%s on unit-normal frames: pick, '
+              'label, distance gaps to float64 Kabsch %r' % (what, gaps))
+        print('[%s] %d x %d unit-normal frames, %d centers, %s: picks, '
+              'labels and distances within %.0e of float64 Kabsch in msd '
+              '(gaps %.3g, %.3g, %.3g)' % ((card, BARE_FRAMES, BARE_ATOMS,
+                                            BARE_PICKS, what, BARE_BAR)
+                                           + gaps), flush=True)
+    prep = engine.prepare_rmsd_frames(X, device=device)
+    start = fresh_state(prep)
+    on = run_chunk(kcenters_chunk, prep, clone(start), BARE_PICKS)
+    plain = run_chunk(kcenters_chunk_plain, prep, clone(start), BARE_PICKS)
+    print(compare_chunks(prep, start, on, plain, BARE_PICKS,
+                         'unit-normal %d x %d x %d kernel 1 vs plain'
+                         % (BARE_FRAMES, BARE_ATOMS, BARE_PICKS)))
+    st = fresh_state(prep)
+    kcenters_chunk(prep, st, 8)
+    gidx, md, i = st.scalars()
+    col = prep.frames_r[:, gidx:gidx + 1].contiguous()
+    gc = prep.g[:, gidx:gidx + 1].contiguous()
+    cases = [iteration_case(prep, (st.dist, st.assig, st.tmax), col, gc,
+                            one(i, torch.int32, device),
+                            one(m, torch.float32, device), msd_bar(prep))
+             for m in (md, float('inf'))]
+    print('unit-normal %d x %d as one shard, center %d: kernels 4 and 3 '
+          'vs plain within the msd bar (md finite and inf), near-tie '
+          'flips %d / %d' % (BARE_FRAMES, BARE_ATOMS, gidx,
+                             cases[0]['flips'], cases[1]['flips']),
+          flush=True)
+    del prep, start, on, plain, st
+    F, C, A = BARE_QCP_FRAMES, BARE_QCP_CENTERS, BARE_ATOMS
+    Y = rng.normal(size=(C, A, 3)).astype(np.float32)
+    a_pad = -(-A // 8) * 8
+
+    def centered(x):
+        x = torch.from_numpy(x).to(device)
+        return x - x.mean(dim=1, keepdim=True)
+    fr, gf = qcp_matrix.to_layout(centered(X[:F]), qcp_matrix.pad_frames(F),
+                                  a_pad)
+    cr, gc = qcp_matrix.to_layout(centered(Y), qcp_matrix.pad_centers(C),
+                                  a_pad)
+    args = (fr, gf, cr, gc, A)
+    k = qcp_matrix.qcp_rmsd_matrix_kernel(*args)[:F, :C].double()
+    p = qcp_matrix.qcp_rmsd_matrix_plain(*args)[:F, :C].double()
+    bar = bar_from(2 * float(max(gf.max(), gc.max())), A)
+    check(bool(((k * k - p * p).abs() <= bar(p)).all()),
+          'unit-normal kernel 5 outside the msd bar of its plain version')
+    ref = kabsch_rmsd_np(Xd[:F, None], Y[None]) ** 2
+    gap = float(np.abs((k * k).cpu().numpy() - ref).max())
+    worst = max(worst, gap)
+    check(gap <= BARE_BAR, 'unit-normal kernel 5: msd %.3g from float64 '
+          'Kabsch' % gap)
+    print('[%s] unit-normal %d x %d x %d kernel 5: within the msd bar of '
+          'its plain version, within %.3g of float64 Kabsch in msd'
+          % (card, F, C, A, gap), flush=True)
+    return worst
 
 
 def phase5_data():
@@ -5078,6 +5182,8 @@ def main():
         torch.cuda.empty_cache()
     print(qcp_self_pairs(device, *QCP_SELF, seed=len(QCP_SHAPES)),
           flush=True)
+    torch.cuda.empty_cache()
+    barely_aligned(device, card)
     torch.cuda.empty_cache()
 
     # -- 5. cluster -> reassign through the apps at full size --------------

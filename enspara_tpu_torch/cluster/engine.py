@@ -520,17 +520,18 @@ def _global_best(mesh, lmax, largmax, starts):
     the shards' maxima and the smallest global index among the shards
     holding it (the serial ``np.argmax``). ``starts`` (int32, on the
     lead device) is each local shard's first global frame."""
-    lead = mesh.lead
-    vals = torch.cat([v.reshape(1).to(lead) for v in lmax])
-    args = torch.cat([a.reshape(1).to(lead) for a in largmax]) + starts
-    if mesh.spans_processes:
-        # float64 holds both the float32 maxima and the int32 indices
-        both = mesh.all_gather(torch.stack((vals.double(), args.double()),
-                                           dim=1))
-        vals, args = both[:, 0].float(), both[:, 1].int()
-    md = vals.max()
-    return (md.reshape(1, 1),
-            torch.where(vals == md, args, _IMAX32).min().reshape(1, 1))
+    with trace_region('enspara/kcenters.global_best'):
+        lead = mesh.lead
+        vals = torch.cat([v.reshape(1).to(lead) for v in lmax])
+        args = torch.cat([a.reshape(1).to(lead) for a in largmax]) + starts
+        if mesh.spans_processes:
+            # float64 holds both the float32 maxima and the int32 indices
+            both = mesh.all_gather(torch.stack(
+                (vals.double(), args.double()), dim=1))
+            vals, args = both[:, 0].float(), both[:, 1].int()
+        md = vals.max()
+        return (md.reshape(1, 1),
+                torch.where(vals == md, args, _IMAX32).min().reshape(1, 1))
 
 
 def _kcenters_loop_fused_sharded(prep, dist, assig, n_start, n_clusters,
@@ -666,7 +667,11 @@ def kcenters_device_fused(X, n_clusters=None, dist_cutoff=None,
     given in it too.
 
     Returns a :class:`KCentersDeviceResult` of host arrays (on every
-    process of a mesh that spans processes).
+    process of a mesh that spans processes). Over shards, the sharded
+    loop is one ``enspara/kcenters.sharded`` span, each global argmax an
+    ``enspara/kcenters.global_best`` span, and
+    ``kcenters_device_fused.n_collectives`` counts the call's collectives
+    over the processes.
     """
     if isinstance(X, (PreparedRMSDFrames, ShardedRMSDFrames)):
         if precision is not None and precision != X.precision:
@@ -708,13 +713,16 @@ def kcenters_device_fused(X, n_clusters=None, dist_cutoff=None,
             lo = (prep.first_shard + s) * n_local
             return torch.from_numpy(a[:, lo:lo + n_local].copy()).to(
                 prep.shards[s].g.device)
-        state, ctr, n_found = _kcenters_loop_fused_sharded(
-            prep, [local(dist, s) for s in range(len(prep.shards))],
-            [local(assig, s) for s in range(len(prep.shards))],
-            int(n_init_centers), n_clusters_eff, cutoff_eff, k_max, mesh,
-            tri_skip=tri_skip)
+        before = mesh.n_collectives
+        with trace_region('enspara/kcenters.sharded'):
+            state, ctr, n_found = _kcenters_loop_fused_sharded(
+                prep, [local(dist, s) for s in range(len(prep.shards))],
+                [local(assig, s) for s in range(len(prep.shards))],
+                int(n_init_centers), n_clusters_eff, cutoff_eff, k_max,
+                mesh, tri_skip=tri_skip)
         dists = host_fetch(state.dist, mesh, axis=1)[0, :n]
         assigs = host_fetch(state.assig, mesh, axis=1)[0, :n]
+        kcenters_device_fused.n_collectives = mesh.n_collectives - before
     else:
         dev = prep.frames_r.device
         dist_t = torch.from_numpy(dist).to(dev)
@@ -736,6 +744,11 @@ def kcenters_device_fused(X, n_clusters=None, dist_cutoff=None,
         ctr_inds[:n_init_centers] = init_center_indices
     return KCentersDeviceResult(dists.astype(np.float64),
                                 assigs.astype(np.int64), ctr_inds, n_found)
+
+
+# the collectives over the processes of the last sharded call (the loop
+# and the fetch of its results; the mesh's n_collectives counts them)
+kcenters_device_fused.n_collectives = 0
 
 
 def _feature_shards(prep):

@@ -7,6 +7,12 @@
 //     the S components on the matrix unit at Precision.HIGHEST, the
 //     Newton epilogue, only the (TF, TC) block written back.
 //
+// Out: the RMSD; where the root lies near a double root of the quartic
+// (~5e-5 of unit-normal pairs) the kernel stores it negated and a second
+// kernel, qcp_matrix_kernel_finish, computes the pair again in double
+// (its name extends the first's: a profile that counts kernel 5's time
+// by name counts both).
+//
 // Layout: frames (3*a_pad, f_pad) and centers (3*a_pad, c_pad) fp32,
 // row i*a_pad + a holds coordinate i of atom a, the structure axis is
 // the minor one (the k-centers layout of this package); gf (f_pad,),
@@ -16,8 +22,9 @@
 // and their rows and columns are sliced away by the caller.
 //
 // What bounds it on an H100: arithmetic. Per pair the nine contractions
-// are 18 * a_pad flops, and the Newton epilogue (qcp_rmsd.cuh) about
-// 330 fp32 operations with 14 exact divisions and a sqrt; it reads
+// are 18 * a_pad flops, and the Newton epilogue (qcp_rmsd.cuh) 355 fp32
+// operations (chip_smoke.py :: QCP_EPILOGUE_OPS) with 14 exact divisions
+// and two square roots; it reads
 // 3 * a_pad floats per structure once per tile of the other side. At 1M
 // frames x 256 centers x 64 atoms the epilogue alone is 8.9e10 fp32
 // operations against 0.8 GB read. The design:
@@ -83,6 +90,7 @@ struct Stage {
   float C[3][kChunkA][kPitchC];
 };
 constexpr int kSmemBytes = 2 * kStages * sizeof(Stage);
+constexpr int kFinishThreads = 256;  // a block of qcp_matrix_kernel_finish
 
 __device__ __forceinline__ void bar_sync(int id, int count) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
@@ -199,7 +207,8 @@ __device__ __forceinline__ void contract(
 
 // The Newton epilogue of the thread's 8 pairs and their stores: element
 // e of n-tile nt is frame wf + g + 8 * (e / 2), center
-// wc + 8 * nt + 2 * t + e % 2 of the tile.
+// wc + 8 * nt + 2 * t + e % 2 of the tile. A pair near a double root of
+// the quartic is stored negated (qcp_rmsd.cuh).
 __device__ __forceinline__ void finish(const float (&acc)[9][2][4],
                                        const float* __restrict__ gf,
                                        const float* __restrict__ gc,
@@ -219,7 +228,10 @@ __device__ __forceinline__ void finish(const float (&acc)[9][2][4],
         float S[9];
 #pragma unroll
         for (int q = 0; q < 9; ++q) S[q] = acc[q][nt][2 * h + e2];
-        d[e2] = qcp_rmsd(S, gfr[h] + (e2 ? gcv.y : gcv.x), n_atoms);
+        bool near;
+        d[e2] = qcp_rmsd_flagged(S, gfr[h] + (e2 ? gcv.y : gcv.x), n_atoms,
+                                 near);
+        d[e2] = near ? -d[e2] : d[e2];  // for the caller to finish
       }
       *reinterpret_cast<float2*>(out + (fr + 8 * h) * c_pad + cc) =
           make_float2(d[0], d[1]);
@@ -273,14 +285,50 @@ qcp_matrix_kernel(const float* __restrict__ frames,
     bar_sync(kTokenBar, kThreads);  // group 1's last hand-over
 }
 
+// The pairs qcp_matrix_kernel stored negated, whose root lies near a
+// double root of the QCP quartic (~5e-5 of unit-normal pairs), again in
+// double: S summed in double from the layouts, then qcp_rmsd_double. A
+// thread takes a float4 of out at a time; one without a negative entry
+// costs its load.
+__global__ void qcp_matrix_kernel_finish(const float* __restrict__ frames,
+                                         const float* __restrict__ gf,
+                                         long long f_pad,
+                                         const float* __restrict__ centers,
+                                         const float* __restrict__ gc,
+                                         int c_pad, int a_pad, float n_atoms,
+                                         float* __restrict__ out) {
+  const long long n4 = f_pad * c_pad / 4;
+  for (long long k = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+       k < n4; k += (long long)gridDim.x * blockDim.x) {
+    const float4 v = reinterpret_cast<const float4*>(out)[k];
+    if (!(v.x < 0.0f || v.y < 0.0f || v.z < 0.0f || v.w < 0.0f)) continue;
+    const float w[4] = {v.x, v.y, v.z, v.w};
+    for (int e = 0; e < 4; ++e) {
+      if (!(w[e] < 0.0f)) continue;
+      const long long idx = 4 * k + e;
+      const long long f = idx / c_pad, c = idx % c_pad;
+      double S[9] = {0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0};
+      for (int a = 0; a < a_pad; ++a)
+        for (int i = 0; i < 3; ++i) {
+          const double x = frames[(long long)(i * a_pad + a) * f_pad + f];
+          for (int j = 0; j < 3; ++j)
+            S[3 * i + j] +=
+                x * double(centers[(long long)(j * a_pad + a) * c_pad + c]);
+        }
+      out[idx] = qcp_rmsd_double(S, double(gf[f] + gc[c]), double(n_atoms));
+    }
+  }
+}
+
 }  // namespace
 
 extern "C" {
 
 // Write the (f_pad, c_pad) RMSD block on `stream`: one launch of at most
-// one 512-thread block per SM, each looping over pairs of 64 x 32 tiles.
-// Allocates nothing and does not synchronise. Returns the cudaError_t of
-// the launch (0 = ok).
+// one 512-thread block per SM, each looping over pairs of 64 x 32 tiles,
+// then the finish of the pairs near a double root (one pass over the
+// block). Allocates nothing and does not synchronise. Returns the
+// cudaError_t of the launches (0 = ok).
 int qcp_matrix(const float* frames, const float* gf, long long f_pad,
                const float* centers, const float* gc, int c_pad, int a_pad,
                float n_atoms, float* out, void* stream) {
@@ -303,6 +351,15 @@ int qcp_matrix(const float* frames, const float* gf, long long f_pad,
       static_cast<unsigned int>(pairs < sms ? pairs : sms);
   qcp_matrix_kernel<<<blocks, kThreads, kSmemBytes,
                       static_cast<cudaStream_t>(stream)>>>(
+      frames, gf, f_pad, centers, gc, c_pad, a_pad, n_atoms, out);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long n4 = f_pad * c_pad / 4;
+  const long long want = (n4 + kFinishThreads - 1) / kFinishThreads;
+  const unsigned int finish_blocks = static_cast<unsigned int>(
+      want < 8LL * sms ? want : 8LL * sms);
+  qcp_matrix_kernel_finish<<<finish_blocks, kFinishThreads, 0,
+                             static_cast<cudaStream_t>(stream)>>>(
       frames, gf, f_pad, centers, gc, c_pad, a_pad, n_atoms, out);
   return static_cast<int>(cudaGetLastError());
 }

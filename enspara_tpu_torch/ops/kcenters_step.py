@@ -225,7 +225,8 @@ def kcenters_chunk_plain(prep, state, n_iters):
         S = _einsum_fp32('ian,ja->ijn', frames3, col.view(3, a_pad))
         d_new = rmsd_from_S_components_unrolled(
             tuple(S[p, q] for p in range(3) for q in range(3)),
-            prep.g[0] + gc, float(prep.n_atoms))
+            prep.g[0] + gc, float(prep.n_atoms),
+            float64_finish=False)
         upd = d_new < dist
         dist.copy_(torch.where(upd, d_new, dist))
         assig.masked_fill_(upd, i)
@@ -375,7 +376,8 @@ def kcenters_iteration_skip_plain(frames_r, g, dist, assig, tmax, col,
                      col.view(3, a_pad))
     d_new = rmsd_from_S_components_unrolled(
         tuple(S[p, q] for p in range(3) for q in range(3)),
-        g[0] + g_center.reshape(()), float(n_atoms_real))
+        g[0] + g_center.reshape(()), float(n_atoms_real),
+        float64_finish=False)
     upd = d_new < dist[0]
     dist[0] = torch.where(upd, d_new, dist[0])
     assig[0] = torch.where(upd, center_id.reshape(()), assig[0])

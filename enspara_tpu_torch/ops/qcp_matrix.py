@@ -12,8 +12,10 @@ multiple of 8; padded structures carry G = 1.0 and their rows and
 columns are sliced away.
 
 :func:`qcp_rmsd_matrix_kernel` launches ``csrc/qcp_matrix.cu`` on CUDA
-tensors; :func:`qcp_rmsd_matrix_plain` is the plain PyTorch version
-(``ops/qcp.py``'s einsum and epilogue); :func:`qcp_rmsd_matrix_block`
+tensors (the all-pairs kernel, then its finish in double of the pairs
+near a double root of the QCP quartic, as the plain version finishes
+them in float64); :func:`qcp_rmsd_matrix_plain` is the plain PyTorch
+version (``ops/qcp.py``'s einsum and epilogue); :func:`qcp_rmsd_matrix_block`
 takes the kernel for CUDA tensors and the plain version for CPU
 tensors. :func:`pairwise_rmsd` is the ``(F, N, 3) x (C, N, 3)`` entry
 point with the padding done for the caller.
@@ -136,10 +138,11 @@ def _kernel():
 
 
 def qcp_rmsd_matrix_kernel(frames_r, g_f, centers_r, g_c, n_atoms_real):
-    """``(F, C)`` float32 RMSD block by ``csrc/qcp_matrix.cu``: one
-    launch on the current stream, the contraction in 3xTF32 on the
-    tensor cores. CUDA tensors only; raises if the build or the launch
-    fails."""
+    """``(F, C)`` float32 RMSD block by ``csrc/qcp_matrix.cu``: one call
+    of its entry point on the current stream (the all-pairs kernel, the
+    contraction in 3xTF32 on the tensor cores, then its finish of the
+    pairs near a double root in double). CUDA tensors only; raises if
+    the build or a launch fails."""
     _check(frames_r, g_f, centers_r, g_c)
     device = frames_r.device
     if device.type != 'cuda':
@@ -169,7 +172,8 @@ def qcp_rmsd_matrix_kernel(frames_r, g_f, centers_r, g_c, n_atoms_real):
     return out
 
 
-# CUDA kernel launches made by qcp_rmsd_matrix_kernel
+# calls of csrc/qcp_matrix.cu made by qcp_rmsd_matrix_kernel (each the
+# all-pairs kernel and its finish)
 qcp_rmsd_matrix_kernel.n_launches = 0
 
 

@@ -59,7 +59,8 @@ def kcenters_iteration_plain(frames_r, g, dist, assig, cvec, g_center,
                          frames_r.float().view(3, rows // 3, n_pad), cvec)
         d_new = rmsd_from_S_components_unrolled(
             tuple(S[p, q] for p in range(3) for q in range(3)),
-            g[0] + g_center.reshape(()), float(n_atoms_real))
+            g[0] + g_center.reshape(()), float(n_atoms_real),
+            float64_finish=False)
         upd = d_new < dist[0]
         dist[0] = torch.where(upd, d_new, dist[0])
         assig[0] = torch.where(upd, center_id.reshape(()), assig[0])

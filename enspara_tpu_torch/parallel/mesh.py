@@ -23,6 +23,11 @@ processes that share a card, which NCCL refuses).
 
 Multi-process jobs call :func:`initialize_distributed` first.
 
+Each collective over the processes is an ``enspara/mesh.all_reduce`` or
+``enspara/mesh.all_gather`` span (``util.log.trace_region``: the host's
+time to enqueue it, and for a staged one its copies; it does not
+synchronise) and counts in the mesh's ``n_collectives``.
+
 ``mesh=None`` means what it means in the JAX package: every visible
 card (:func:`frame_mesh`), but for a clustering, assignment or PAM
 job too small to pay for several cards, which runs on the current card
@@ -35,6 +40,8 @@ import os
 
 import numpy as np
 import torch
+
+from ..util.log import trace_region
 
 FRAME_AXIS = 'frames'
 
@@ -93,6 +100,8 @@ class FrameMesh:
                              % [str(d) for d in devs])
         self.devices = tuple(devs)
         self.group = group
+        # collectives over the processes this mesh has run
+        self.n_collectives = 0
 
     @property
     def n_local(self):
@@ -151,9 +160,12 @@ class FrameMesh:
     def all_reduce(self, t, op='sum'):
         """Reduce ``t`` (on the lead device) in place over the processes;
         no-op for a single process. Returns ``t``."""
-        if self.spans_processes:
-            import torch.distributed as dist
-            ops = {'sum': dist.ReduceOp.SUM, 'max': dist.ReduceOp.MAX}
+        if not self.spans_processes:
+            return t
+        import torch.distributed as dist
+        ops = {'sum': dist.ReduceOp.SUM, 'max': dist.ReduceOp.MAX}
+        self.n_collectives += 1
+        with trace_region('enspara/mesh.all_reduce'):
             if self._staged(t):
                 host = t.cpu()
                 dist.all_reduce(host, op=ops[op], group=self.group)
@@ -169,12 +181,15 @@ class FrameMesh:
         if not self.spans_processes:
             return t
         import torch.distributed as dist
-        staged = self._staged(t)
-        src = t.cpu() if staged else t.contiguous()
-        parts = [torch.empty_like(src) for _ in range(self.process_count)]
-        dist.all_gather(parts, src, group=self.group)
-        out = torch.cat(parts, dim=dim)
-        return out.to(t.device) if staged else out
+        self.n_collectives += 1
+        with trace_region('enspara/mesh.all_gather'):
+            staged = self._staged(t)
+            src = t.cpu() if staged else t.contiguous()
+            parts = [torch.empty_like(src)
+                     for _ in range(self.process_count)]
+            dist.all_gather(parts, src, group=self.group)
+            out = torch.cat(parts, dim=dim)
+            return out.to(t.device) if staged else out
 
     def reduce(self, tensors, op='sum'):
         """Reduce one same-shaped tensor per local shard: over the local

@@ -199,6 +199,31 @@ def test_host_helpers_match_jax():
                                   [1, 3, 0])
 
 
+@pytest.mark.parametrize('case', ['ties', 'negative', 'int32_float32',
+                                  'wide', 'nan', 'one_label'])
+def test_find_cluster_centers_scatter_equals_the_sort(case):
+    """The O(n) scatter-min path (integer labels no wider than the
+    frames) and the sort it falls back to (wide labels, a NaN) give the
+    JAX package's first minimum-distance frame of each label."""
+    rng = np.random.default_rng(len(case))
+    n = 5000
+    labels = rng.integers(0, 40, n)
+    gaps = np.round(rng.random(n), 2)           # many ties
+    if case == 'negative':
+        labels -= 20
+    elif case == 'int32_float32':
+        labels, gaps = labels.astype(np.int32), gaps.astype(np.float32)
+    elif case == 'wide':
+        labels = labels * 10 ** 6
+    elif case == 'nan':
+        gaps[rng.integers(0, n, 30)] = np.nan
+    elif case == 'one_label':
+        labels[:] = 3
+    got = util.find_cluster_centers(labels, gaps)
+    np.testing.assert_array_equal(got, jutil.find_cluster_centers(labels,
+                                                                  gaps))
+
+
 def test_estimator_predict_and_params_match_jax():
     X = _data(13, n=300, a=6)
     ref = JaxKCenters('rmsd', n_clusters=8).fit(X)

@@ -70,6 +70,26 @@ def assert_rmsd_close(actual, desired, gsum_max, n_atoms):
         err.max(), bad.sum(), floor)
 
 
+# Newton steps that bring the JAX package's QCP (12 from u = 1) to the
+# root for structures that barely align, where the port's epilogue
+# starts from an upper bound near the root (enspara_tpu_torch/ops/qcp.py)
+JAX_CONVERGED_NEWTON = 24
+
+
+@pytest.fixture
+def jax_newton_converged(monkeypatch):
+    """The JAX package's QCP with its Newton run to convergence, for
+    holding the port to it on structures that barely align. The JAX
+    module reads ``NEWTON_ITERS`` when it traces, so JAX's caches are
+    cleared on both sides of the test."""
+    import jax
+    from enspara_tpu.ops import qcp as jqcp
+    monkeypatch.setattr(jqcp, 'NEWTON_ITERS', JAX_CONVERGED_NEWTON)
+    jax.clear_caches()
+    yield
+    jax.clear_caches()
+
+
 def assert_gram_close(actual, desired, X, C):
     """Euclidean distances of the Gram form agree: for frame x,
     ``|a^2 - d^2| <= 1e-5 d^2 + 16 eps32 (|x|^2 + max |c|^2)``.

@@ -3,7 +3,10 @@ float64 Kabsch/SVD oracle, on the same numpy inputs.
 
 Bars: against the JAX functions rtol 1e-5, atol 1e-6 where the RMSD is
 far from zero (both fp32, another summation order); against the oracle
-the bars of tests/test_qcp.py.
+the bars of tests/test_qcp.py. On structures that barely align the JAX
+package runs its Newton to convergence (``jax_newton_converged``): the
+port starts Newton from an upper bound near the root, the JAX package
+from u = 1, where 12 steps fall short for such pairs.
 """
 
 import jax.numpy as jnp
@@ -15,6 +18,8 @@ from numpy.testing import assert_allclose
 from enspara_tpu.ops import qcp as jqcp
 
 from enspara_tpu_torch.ops import qcp
+
+from test_torch_port import jax_newton_converged  # noqa: F401
 
 
 @pytest.fixture(autouse=True)
@@ -60,8 +65,11 @@ def test_center_and_prepare_match_jax():
     assert (p.numpy()[:, 13:] == 0).all()
 
 
+@pytest.mark.usefixtures('jax_newton_converged')
 @pytest.mark.parametrize('shape', ['vector', 'matrix'])
 def test_rmsd_matches_jax_and_oracle(shape):
+    """Unit-normal structures, which barely align: the JAX package with
+    its Newton run to convergence (from u = 1, 12 steps fall short)."""
     rng = np.random.default_rng(1)
     frames = random_structs(rng, 12, 37)
     refs = random_structs(rng, 1 if shape == 'vector' else 5, 37)

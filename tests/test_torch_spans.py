@@ -9,13 +9,22 @@ The device PAM sweeps record one ``enspara/pam.read`` per host read that
 chunk of the k-centers loop inside it, then its PAM stage; a warm start
 records its host search for the init centers' frames before the first
 chunk; the batched timescales record their host preparation before the
-first count. Results under the profiler equal those without it, bit
-for bit. On the card (the ``cuda`` test; this file imports no jax, run
+first count. In a job of two processes over gloo the sharded k-centers
+loop is one ``enspara/kcenters.sharded`` span, each global argmax an
+``enspara/kcenters.global_best`` span and each collective an
+``enspara/mesh.*`` span, as many as ``FrameMesh.n_collectives`` counts.
+Results under the profiler equal those without it, bit for bit. On the
+card (the ``cuda`` test; this file imports no jax, run
 it there with ``python -m pytest --noconftest -m cuda
 tests/test_torch_spans.py``) no span reaches the device's timeline.
 """
 
 import importlib
+import json
+import os
+import socket
+import subprocess
+import sys
 import types
 
 import numpy as np
@@ -240,3 +249,105 @@ def test_spans_never_reach_the_device_timeline(cuda):
     assert len(reads) == n_syncs > 0
     assert all(e.device_type == DeviceType.CPU and not e.is_user_annotation
                for e in reads)
+
+
+SHARDED_WORKER = r'''
+import json, sys
+import numpy as np
+import torch
+from torch.profiler import ProfilerActivity, profile
+from enspara_tpu_torch.apps.cluster import join_job
+from enspara_tpu_torch.cluster import KCenters, engine
+torch.set_num_threads(1)
+mesh = join_job()
+X = np.load(sys.argv[1])
+k = int(sys.argv[2])
+
+
+def fit():
+    return KCenters(metric='rmsd', n_clusters=k, random_first_center=True,
+                    random_state=5, mesh=mesh).fit(X).result_
+
+
+plain = fit()
+before = mesh.n_collectives
+with profile(activities=[ProfilerActivity.CPU]) as prof:
+    res = fit()
+evs = sorted((e for e in prof.events() if e.name.startswith('enspara/')),
+             key=lambda e: e.time_range.start)
+loop = [e for e in evs if e.name == 'enspara/kcenters.sharded']
+best = [e for e in evs if e.name == 'enspara/kcenters.global_best']
+
+
+def inside(e, spans):
+    return any(s.time_range.start <= e.time_range.start
+               and e.time_range.end <= s.time_range.end for s in spans)
+
+
+mesh_evs = [e for e in evs if e.name.startswith('enspara/mesh.')]
+print(json.dumps(dict(
+    same=bool(np.array_equal(res.center_indices, plain.center_indices)
+              and np.array_equal(res.distances, plain.distances)),
+    spans_processes=mesh.spans_processes,
+    n_loop=len(loop), n_best=len(best),
+    in_loop={n: sum(1 for e in mesh_evs if e.name == n and inside(e, loop))
+             for n in ('enspara/mesh.all_reduce', 'enspara/mesh.all_gather')},
+    gathers_in_best=sum(1 for e in mesh_evs
+                        if e.name == 'enspara/mesh.all_gather'
+                        and inside(e, best)),
+    n_mesh=len(mesh_evs), counted=mesh.n_collectives - before,
+    fit_collectives=engine.kcenters_device_fused.n_collectives)))
+'''
+
+
+def _free_port():
+    with socket.socket() as s:
+        s.bind(('localhost', 0))
+        return str(s.getsockname()[1])
+
+
+def test_sharded_kcenters_spans_its_collectives(tmp_path):
+    """Two processes of one CPU shard each over gloo: one loop span, a
+    global-best span for the first center's search and each iteration,
+    two collectives an iteration and the final sum of skipped tiles
+    inside the loop (each gather inside a global-best span), every
+    collective of the fit a span and a count; the fit adds the two
+    fetches of its results to the loop's."""
+    k = 12
+    np.save(str(tmp_path / 'X.npy'), frames(3, n=400))
+    worker = tmp_path / 'worker.py'
+    worker.write_text(SHARDED_WORKER)
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    port = _free_port()
+    procs = []
+    for r in range(2):
+        env = dict(os.environ, PYTHONPATH=repo + os.pathsep
+                   + os.environ.get('PYTHONPATH', ''), OMP_NUM_THREADS='1',
+                   ENSPARA_TPU_PLATFORM='cpu',
+                   ENSPARA_TPU_COORDINATOR='localhost:' + port,
+                   ENSPARA_TPU_NUM_PROCESSES='2',
+                   ENSPARA_TPU_PROCESS_ID=str(r),
+                   ENSPARA_TPU_LOCAL_SHARDS='1')
+        procs.append(subprocess.Popen(
+            [sys.executable, str(worker), str(tmp_path / 'X.npy'), str(k)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, env=env,
+            text=True))
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=240)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    for p, out in zip(procs, outs):
+        assert p.returncode == 0, out
+        got = json.loads(out.strip().splitlines()[-1])
+        assert got['same'] and got['spans_processes']
+        iters = k - 1           # the first center is the seeded start
+        assert got['n_loop'] == 1 and got['n_best'] == iters + 1
+        assert got['in_loop'] == {'enspara/mesh.all_reduce': iters + 1,
+                                  'enspara/mesh.all_gather': iters + 1}
+        assert got['gathers_in_best'] == iters + 1
+        assert got['n_mesh'] == got['counted']
+        assert got['fit_collectives'] == 2 * (iters + 1) + 2
