@@ -49,7 +49,9 @@ kernel on its frames (``kcenters_iteration_skip``, or
 ``kcenters_iteration`` with ``tri_skip=False``), and the argmax across
 shards and the broadcast of the center's column are torch ops on the
 mesh's lead device, then ``torch.distributed`` collectives when the
-mesh spans processes. Assignment runs per shard, and so does the
+mesh spans processes; where every local shard lies on one card and the
+processes, if any, join over NCCL, the loop replays its chunks as one
+CUDA graph. Assignment runs per shard, and so does the
 all-pairs block of the PAM sweeps (:func:`_pairwise_block` on a sharded
 container: each shard's rows against columns brought to it by one
 owner-masked sum). With no mesh, every function runs on one device
@@ -534,6 +536,66 @@ def _global_best(mesh, lmax, largmax, starts):
                 torch.where(vals == md, args, _IMAX32).min().reshape(1, 1))
 
 
+def _graph_fits(mesh, devices):
+    """Whether the sharded loop may replay its chunks as one CUDA graph:
+    every local shard (``devices``) on the mesh's lead card, and no
+    process group or an NCCL one. Gloo stages its collectives through
+    host memory and a process with shards on several cards would need a
+    graph over them all: those loops run eagerly."""
+    return (mesh.lead.type == 'cuda'
+            and all(d == mesh.lead for d in devices)
+            and mesh.backend in (None, 'nccl'))
+
+
+class _ChunkGraph:
+    """``CHUNK`` calls of the sharded loop's ``step`` captured as one
+    CUDA graph on the mesh's lead card, collectives included, in a
+    memory pool of its own. The loop's state ``(md, gidx, i, skipped)``
+    lives in static tensors that each replay updates in place.
+
+    Host counters of the work a chunk runs (the mesh's collectives, the
+    iteration kernels' launches) count at each replay, not at the
+    capture, where nothing runs."""
+
+    def __init__(self, step, state, mesh):
+        self.state = tuple(t.clone() for t in state)
+        self.counters = [(mesh, 'n_collectives')] + [
+            (fn, attr) for fn in (kcenters_iteration_skip, kcenters_iteration)
+            for attr in ('n_launches', 'n_bf16_launches')]
+        before = [getattr(o, a) for o, a in self.counters]
+        self.graph = torch.cuda.CUDAGraph()
+        lead = mesh.lead
+        side = torch.cuda.Stream(lead)
+        side.wait_stream(torch.cuda.current_stream(lead))
+        # thread_local: c10d's watchdog thread polls the NCCL work events
+        # at any time, which a global-mode capture refuses
+        with torch.cuda.device(lead), torch.cuda.stream(side):
+            self.graph.capture_begin(capture_error_mode='thread_local')
+            try:
+                out = self.state
+                for _ in range(CHUNK):
+                    out = step(*out)
+                for t, o in zip(self.state, out):
+                    t.copy_(o)
+            finally:
+                self.graph.capture_end()
+        torch.cuda.current_stream(lead).wait_stream(side)
+        self.per_replay = []
+        for (o, a), b in zip(self.counters, before):
+            self.per_replay.append(getattr(o, a) - b)
+            setattr(o, a, b)
+
+    def replay(self):
+        self.graph.replay()
+        for (o, a), n in zip(self.counters, self.per_replay):
+            setattr(o, a, getattr(o, a) + n)
+        return self.state
+
+    def release(self):
+        self.graph.reset()
+        self.graph = None
+
+
 def _kcenters_loop_fused_sharded(prep, dist, assig, n_start, n_clusters,
                                  dist_cutoff, k_max, mesh, tri_skip=True):
     """K-centers over the shards of ``mesh`` (the JAX package's
@@ -550,6 +612,16 @@ def _kcenters_loop_fused_sharded(prep, dist, assig, n_start, n_clusters,
     of the shards' (max, argmax). All of it stays on the devices: the
     host reads ``(i, md)`` once per ``CHUNK`` iterations, and a device
     flag makes the iterations past the stop leave the state untouched.
+
+    Where :func:`_graph_fits` the mesh and more than a chunk remains
+    after the first (eager) chunk, the loop captures ``CHUNK`` steps as
+    one CUDA graph (an ``enspara/kcenters.capture`` span) and replays it
+    for every later chunk (an ``enspara/kcenters.replay`` span each,
+    counted in ``kcenters_device_fused.n_replays``); the steps past the
+    stop are the flag's no-ops. The replays run the eager steps'
+    kernels and collectives in the same order on the same data, so the
+    results are the same bits. The graph and its pool go when the loop
+    ends.
 
     Returns ``(state, ctr (k_max,) int32, n_found)``; ``ctr`` holds -1
     in the warm-start slots.
@@ -618,13 +690,31 @@ def _kcenters_loop_fused_sharded(prep, dist, assig, n_start, n_clusters,
         return (torch.where(go, md2, md), torch.where(go, gidx2, gidx),
                 i + go.to(torch.int32), skipped)
 
-    while True:
-        h = torch.cat((i.reshape(1).double(), md.reshape(1).double())).cpu()
-        n_found, md_h = int(h[0]), float(h[1])
-        if n_found >= n_clusters or not md_h > cutoff:
-            break
-        for _ in range(min(CHUNK, n_clusters - n_found)):
-            md, gidx, i, skipped = step(md, gidx, i, skipped)
+    graph, warm = None, False
+    fits = _graph_fits(mesh, [sh.g.device for sh in prep.shards])
+    kcenters_device_fused.n_replays = 0
+    try:
+        while True:
+            h = torch.cat((i.reshape(1).double(),
+                           md.reshape(1).double())).cpu()
+            n_found, md_h = int(h[0]), float(h[1])
+            if n_found >= n_clusters or not md_h > cutoff:
+                break
+            if graph is None and fits and warm \
+                    and n_clusters - n_found > CHUNK:
+                with trace_region('enspara/kcenters.capture'):
+                    graph = _ChunkGraph(step, (md, gidx, i, skipped), mesh)
+            if graph is not None:
+                with trace_region('enspara/kcenters.replay'):
+                    md, gidx, i, skipped = graph.replay()
+                kcenters_device_fused.n_replays += 1
+            else:
+                for _ in range(min(CHUNK, n_clusters - n_found)):
+                    md, gidx, i, skipped = step(md, gidx, i, skipped)
+                warm = True
+    finally:
+        if graph is not None:
+            graph.release()
     state = ShardedKCentersState(dist, assig, tmax, gidx, md, i,
                                  mesh.all_reduce(skipped))
     return state, ctr[:k_max], n_found
@@ -668,10 +758,11 @@ def kcenters_device_fused(X, n_clusters=None, dist_cutoff=None,
 
     Returns a :class:`KCentersDeviceResult` of host arrays (on every
     process of a mesh that spans processes). Over shards, the sharded
-    loop is one ``enspara/kcenters.sharded`` span, each global argmax an
-    ``enspara/kcenters.global_best`` span, and
+    loop is one ``enspara/kcenters.sharded`` span, each global argmax
+    the host issues an ``enspara/kcenters.global_best`` span,
     ``kcenters_device_fused.n_collectives`` counts the call's collectives
-    over the processes.
+    over the processes (those its CUDA graph replays ran included) and
+    ``kcenters_device_fused.n_replays`` the replays.
     """
     if isinstance(X, (PreparedRMSDFrames, ShardedRMSDFrames)):
         if precision is not None and precision != X.precision:
@@ -749,6 +840,8 @@ def kcenters_device_fused(X, n_clusters=None, dist_cutoff=None,
 # the collectives over the processes of the last sharded call (the loop
 # and the fetch of its results; the mesh's n_collectives counts them)
 kcenters_device_fused.n_collectives = 0
+# the CUDA graph replays of the last sharded call's loop
+kcenters_device_fused.n_replays = 0
 
 
 def _feature_shards(prep):

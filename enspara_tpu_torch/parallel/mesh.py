@@ -26,7 +26,10 @@ Multi-process jobs call :func:`initialize_distributed` first.
 Each collective over the processes is an ``enspara/mesh.all_reduce`` or
 ``enspara/mesh.all_gather`` span (``util.log.trace_region``: the host's
 time to enqueue it, and for a staged one its copies; it does not
-synchronise) and counts in the mesh's ``n_collectives``.
+synchronise) and counts in the mesh's ``n_collectives``. A caller that
+captures collectives into a CUDA graph (the sharded k-centers loop)
+takes the capture's counts back and adds them at each replay, so that
+``n_collectives`` counts the collectives that ran.
 
 ``mesh=None`` means what it means in the JAX package: every visible
 card (:func:`frame_mesh`), but for a clustering, assignment or PAM
@@ -151,11 +154,19 @@ class FrameMesh:
 
     # -- collectives ----------------------------------------------------
 
+    @property
+    def backend(self):
+        """The process group's backend ('nccl', 'gloo'); None without a
+        group."""
+        if self.group is None:
+            return None
+        import torch.distributed as dist
+        return dist.get_backend(self.group)
+
     def _staged(self, t):
         """Whether a collective on ``t`` crosses through host memory: a
         CUDA tensor over a gloo group."""
-        import torch.distributed as dist
-        return t.is_cuda and dist.get_backend(self.group) == 'gloo'
+        return t.is_cuda and self.backend == 'gloo'
 
     def all_reduce(self, t, op='sum'):
         """Reduce ``t`` (on the lead device) in place over the processes;
@@ -177,14 +188,25 @@ class FrameMesh:
     def all_gather(self, t, dim=0):
         """Concatenate ``t`` of every process along ``dim``, in process
         order (every process passes the same shape); ``t`` itself for a
-        single process."""
+        single process. Over NCCL the processes' tensors land in one
+        buffer (``all_gather_into_tensor``), one collective that a CUDA
+        graph can capture."""
         if not self.spans_processes:
             return t
         import torch.distributed as dist
         self.n_collectives += 1
         with trace_region('enspara/mesh.all_gather'):
+            src = t.contiguous()
+            if self.backend == 'nccl':
+                out = src.new_empty((self.process_count * src.shape[0],)
+                                    + tuple(src.shape[1:]))
+                dist.all_gather_into_tensor(out, src, group=self.group)
+                if dim == 0:
+                    return out
+                return torch.cat(out.chunk(self.process_count), dim=dim)
             staged = self._staged(t)
-            src = t.cpu() if staged else t.contiguous()
+            if staged:
+                src = src.cpu()
             parts = [torch.empty_like(src)
                      for _ in range(self.process_count)]
             dist.all_gather(parts, src, group=self.group)

@@ -36,11 +36,16 @@ these spans:
 - ``enspara/kcenters.sharded``: the sharded RMSD k-centers loop of one
   ``kcenters_device_fused`` call, and inside it
   ``enspara/kcenters.global_best`` (each global max and argmax over the
-  shards);
+  shards that the host issues), ``enspara/kcenters.capture`` (the
+  capture of a chunk as a CUDA graph, one a loop that takes the graph)
+  and ``enspara/kcenters.replay`` (the host's launch of one replay of
+  that graph);
 - ``enspara/mesh.all_reduce``, ``enspara/mesh.all_gather``: one
-  collective over the processes of a ``FrameMesh`` (the host's enqueueing of
-  it; its copies through host memory where staged), one for each count
-  of the mesh's ``n_collectives``.
+  collective over the processes of a ``FrameMesh`` that the host issues
+  (its enqueueing; its copies through host memory where staged), eager
+  or into a CUDA graph's capture. The mesh's ``n_collectives`` counts
+  the collectives that run: one for each eager span, none for a
+  captured one, and a chunk's worth for each replay.
 
 The span that caused a span is the one that encloses it; no ids are
 kept. To record them, run the work under ``torch.profiler``; the
