@@ -962,7 +962,7 @@ def reassign_path(device, card):
         check(bool((bar(0.0) >= res.distances[ctr] ** 2).all()),
               'a center frame lies %g from its own center'
               % res.distances[ctr].max())
-        cost_kc = float(np.mean(kc.result.distances ** 2))
+        cost_kc = float(np.mean(kc.result[0].distances ** 2))
         cost = float(np.mean(res.distances ** 2))
         check(cost <= cost_kc, 'PAM cost %r above k-centers cost %r'
               % (cost, cost_kc))
@@ -2473,7 +2473,7 @@ def feature_path(device, card):
         t_write = time.perf_counter() - t
         check(np.load(args.center_features).shape == (FEAT_K, FEAT_DIM),
               'center features %s' % (np.load(args.center_features).shape,))
-        cost_kc = float(np.mean(kc.result.distances ** 2))
+        cost_kc = float(np.mean(kc.result[0].distances ** 2))
         cost = float(np.mean(res.distances ** 2))
         check(cost <= cost_kc, 'PAM cost %r above k-centers cost %r'
               % (cost, cost_kc))
@@ -4398,10 +4398,10 @@ def khybrid_mesh_check(X, mesh, device, card, phase5):
         ctr = np.asarray(r.center_indices)
         check(len(set(ctr.tolist())) == CLUSTER_K, '16a: %d distinct '
               'centers' % len(set(ctr.tolist())))
-        check(pam_cost(r.distances) <= pam_cost(kc.result.distances),
+        check(pam_cost(r.distances) <= pam_cost(kc.result[0].distances),
               '16a: PAM raised the cost')
-    seeds = int((np.asarray(kc_m.result.center_indices)
-                 != np.asarray(kc_1.result.center_indices)).sum())
+    seeds = int((np.asarray(kc_m.result[0].center_indices)
+                 != np.asarray(kc_1.result[0].center_indices)).sum())
     verdict = compare_pam(
         (res_m.center_indices, res_m.distances, res_m.assignments),
         (res_1.center_indices, res_1.distances, res_1.assignments), bar,
@@ -4536,7 +4536,7 @@ def job_worker(rank, d):
     r = clustering.result_
     np.savez(os.path.join(d, 'res%d.npz' % rank),
              ctr=np.asarray(r.center_indices), assig=r.assignments,
-             dist=r.distances, seed=kc.result.distances)
+             dist=r.distances, seed=kc.result[0].distances)
     with open(os.path.join(d, 'stages%d.json' % rank), 'w') as f:
         json.dump({'join': t_join, 'load': t_load, 'kcenters': kc.seconds,
                    'loop': loop.seconds, 'pam': pam.seconds,

@@ -72,9 +72,10 @@ from ..ops.qcp import qcp_rmsd_vector
 from ..ops.qcp_matrix import (TILE_C, pad_centers, pad_frames,
                               qcp_rmsd_matrix_block, to_layout)
 from ..ops.qcp_update import kcenters_iteration
-from ..parallel.mesh import (host_fetch, pad_to_multiple,
+from ..parallel.mesh import (FrameMesh, host_fetch, pad_to_multiple,
                              resolve_placement, shard_frames)
-from ..parallel.ops import distribute_frames, owned_rows
+from ..parallel.ops import (argmax_over_shards, distribute_frames,
+                            global_argmax, owned_rows)
 from ..util.device import resolve_device
 from ..util.log import trace_region
 
@@ -92,7 +93,6 @@ ASSIGN_BLOCK = 512
 TILE = 256
 # centers per chunk: the host reads the loop state once per chunk
 CHUNK = 64
-_IMAX32 = 2 ** 31 - 1
 # the frame types of the k-centers layout
 _FRAME_DTYPE = {'fp32': torch.float32, 'bf16': torch.bfloat16}
 # host bytes of float32 coordinates a chunk of the streamed ingest
@@ -487,6 +487,77 @@ def _prepared(X, metric, device=None, mesh=None, tile=None, **kw):
     return _prepare_features(X, metric, device, mesh)
 
 
+def _sharded(prep):
+    """Whether a prepared container is cut into the shards of a mesh."""
+    return isinstance(prep, (ShardedRMSDFrames, ShardedFeatures))
+
+
+def _shards(prep):
+    """``(shards, n_local, first_shard)`` of a prepared container: this
+    process's shards, their frame count and the global index of the
+    first; a one-device container is its own one shard."""
+    if _sharded(prep):
+        return prep.shards, prep.n_local, prep.first_shard
+    return (prep,), prep.n_pad, 0
+
+
+def _local_rows(prep, values, pad, dtype, order=None):
+    """Per-frame host ``values`` (the caller's order; ``order`` maps
+    layout positions to it) as ``dtype`` over the layout's whole frame
+    axis, ``pad`` past the real frames, cut into this process's shards
+    of ``prep``: one (n_local,) tensor per local shard, on its
+    device."""
+    shards, n_local, first = _shards(prep)
+    a = np.full(n_local * getattr(prep, 'n_shards', 1), pad, dtype)
+    a[:prep.n] = values if order is None else np.asarray(values)[order]
+    return [torch.from_numpy(a[(first + s) * n_local:][:n_local].copy())
+            .to(sh.device) for s, sh in enumerate(shards)]
+
+
+def _loop_start(prep, n_clusters, dist_cutoff, k_max, init_distances,
+                init_assignments):
+    """The k-centers loops' set-up: ``(k_max, n_clusters, cutoff)`` as
+    the loops take them, and the state ``(dist, assig)`` as lists of
+    this process's (n_local,) float32/int32 shards: the warm start, in
+    layout order, or inf and -1; -inf and -1 past the real frames."""
+    n = prep.n
+    if k_max is None:
+        k_max = int(n_clusters) if n_clusters is not None else n
+    k_max = int(min(k_max, n))
+    # the warm start comes in the caller's order, the layout may not
+    perm = getattr(prep, 'perm', None)
+    if init_distances is None:
+        init_distances, init_assignments, perm = np.inf, -1, None
+    return (k_max, int(min(n_clusters or n, k_max)),
+            float(np.float32(dist_cutoff if dist_cutoff is not None
+                             else 0.0)),
+            _local_rows(prep, init_distances, -math.inf, np.float32, perm),
+            _local_rows(prep, init_assignments, -1, np.int32, perm))
+
+
+def _loop_results(prep, mesh, dist, assig, ctr, n_found, n_init_centers,
+                  init_center_indices):
+    """The k-centers loops' tear-down: the per-shard state fetched to
+    the host (from every process of ``mesh``) in the caller's frame
+    order, and the centers found, the warm start's as given, as a
+    :class:`KCentersDeviceResult`."""
+    n, perm = prep.n, getattr(prep, 'perm', None)
+    dists, assigs = (host_fetch([t.reshape(-1) for t in x], mesh)[:n]
+                     for x in (dist, assig))
+    ctr_inds = ctr[:n_found].cpu().numpy().astype(np.int64)
+    if perm is not None:
+        # layout position i is the caller's frame perm[i]
+        dists_o, assigs_o = np.empty_like(dists), np.empty_like(assigs)
+        dists_o[perm], assigs_o[perm] = dists, assigs
+        dists, assigs = dists_o, assigs_o
+        placed = ctr_inds >= 0
+        ctr_inds[placed] = perm[ctr_inds[placed]]
+    if init_center_indices is not None:
+        ctr_inds[:n_init_centers] = init_center_indices
+    return KCentersDeviceResult(dists.astype(np.float64),
+                                assigs.astype(np.int64), ctr_inds, n_found)
+
+
 def _kcenters_loop(prep, dist, assig, n_start, n_clusters, dist_cutoff,
                    k_max, skip=True):
     """Chunked k-centers from the (1, n_pad) ``dist``/``assig`` state
@@ -515,25 +586,6 @@ class ShardedKCentersState(NamedTuple):
     md: torch.Tensor           # float32: its distance, the global max
     i: torch.Tensor            # int32: the ordinal it would take
     skipped: torch.Tensor      # int64 (0-d): tile visits skipped
-
-
-def _global_best(mesh, lmax, largmax, starts):
-    """``(md, gidx)`` as (1, 1) tensors on the lead device: the max of
-    the shards' maxima and the smallest global index among the shards
-    holding it (the serial ``np.argmax``). ``starts`` (int32, on the
-    lead device) is each local shard's first global frame."""
-    with trace_region('enspara/kcenters.global_best'):
-        lead = mesh.lead
-        vals = torch.cat([v.reshape(1).to(lead) for v in lmax])
-        args = torch.cat([a.reshape(1).to(lead) for a in largmax]) + starts
-        if mesh.spans_processes:
-            # float64 holds both the float32 maxima and the int32 indices
-            both = mesh.all_gather(torch.stack(
-                (vals.double(), args.double()), dim=1))
-            vals, args = both[:, 0].float(), both[:, 1].int()
-        md = vals.max()
-        return (md.reshape(1, 1),
-                torch.where(vals == md, args, _IMAX32).min().reshape(1, 1))
 
 
 def _graph_fits(mesh, devices):
@@ -626,21 +678,14 @@ def _kcenters_loop_fused_sharded(prep, dist, assig, n_start, n_clusters,
     Returns ``(state, ctr (k_max,) int32, n_found)``; ``ctr`` holds -1
     in the warm-start slots.
     """
-    lead, tile = mesh.lead, prep.tile
-    n_local, n_loc = prep.n_local, len(prep.shards)
+    lead, tile, n_local = mesh.lead, prep.tile, prep.n_local
     rows = int(prep.shards[0].frames_r.shape[0])
-    first = prep.first_shard
-    starts = torch.arange(first, first + n_loc, dtype=torch.int32,
-                          device=lead) * n_local
-    shard_ids = torch.arange(first, first + n_loc, dtype=torch.int32,
-                             device=lead)
+    starts = [(prep.first_shard + s) * n_local
+              for s in range(len(prep.shards))]
 
-    lm, la = [], []
-    for d in dist:
-        arg = torch.argmax(d[0])
-        lm.append(d[0, arg])
-        la.append(arg.to(torch.int32))
-    md, gidx = _global_best(mesh, lm, la, starts)
+    with trace_region('enspara/kcenters.global_best'):
+        md, gidx = global_argmax([d[0] for d in dist], mesh)
+    md, gidx = md.reshape(1, 1), gidx.reshape(1, 1).to(torch.int32)
     t_pad = skip_t_pad(n_local // tile)
     tmax = [tile_summaries(d, tile, t_pad) for d in dist]
     i = torch.full((1, 1), int(n_start), dtype=torch.int32, device=lead)
@@ -654,37 +699,27 @@ def _kcenters_loop_fused_sharded(prep, dist, assig, n_start, n_clusters,
         stop = (~go).to(torch.int32)
         ctr.index_put_((torch.where(go, i, k_max).reshape(1).long(),),
                        gidx.reshape(1))
-        # the center's column and G: owner-masked, summed over shards
-        owner = torch.div(gidx, n_local, rounding_mode='floor')
-        lidx = (gidx - owner * n_local).reshape(1)
-        onehot = (shard_ids == owner.reshape(1)).to(torch.float32)
-        parts = []
-        for s, sh in enumerate(prep.shards):
-            li = lidx.to(sh.g.device)
-            cg = torch.cat((sh.frames_r.index_select(1, li).float(),
-                            sh.g.index_select(1, li)))
-            parts.append(cg.to(lead) * onehot[s])
-        cg = mesh.all_reduce(torch.stack(parts).sum(0))
-        col, gc = cg[:rows], cg[rows:]
+        # the center's column and G on every shard, from its owner
+        cgs = _columns(prep, gidx.reshape(1), mesh)
         lms, las, skcs = [], [], []
         for s, sh in enumerate(prep.shards):
-            c, g1, i1, m1, st = (t.to(sh.g.device)
-                                 for t in (col, gc, i, md, stop))
+            c, g1 = cgs[s][:rows], cgs[s][rows:]
+            i1, m1, st = (t.to(sh.g.device) for t in (i, md, stop))
             if tri_skip:
                 out = kcenters_iteration_skip(
                     sh.frames_r, sh.g, dist[s], assig[s], tmax[s], c, g1,
                     i1, m1, prep.n_atoms, tile=tile, stop=st)
-                lms.append(out[3])
-                las.append(out[4])
+                lm, la = out[3], out[4]
                 skcs.append(out[5].to(lead))
             else:
-                out = kcenters_iteration(
+                lm, la = kcenters_iteration(
                     sh.frames_r, sh.g, dist[s], assig[s],
                     c.view(3, rows // 3).t().contiguous(), g1, i1,
-                    prep.n_atoms, tile=tile, with_argmax=True, stop=st)
-                lms.append(out[2])
-                las.append(out[3])
-        md2, gidx2 = _global_best(mesh, lms, las, starts)
+                    prep.n_atoms, tile=tile, with_argmax=True, stop=st)[2:]
+            lms.append(lm)
+            las.append(la + starts[s])
+        with trace_region('enspara/kcenters.global_best'):
+            md2, gidx2 = argmax_over_shards(lms, las, mesh)
         if skcs:
             skipped = skipped + torch.stack(skcs).sum()
         return (torch.where(go, md2, md), torch.where(go, gidx2, gidx),
@@ -775,66 +810,25 @@ def kcenters_device_fused(X, n_clusters=None, dist_cutoff=None,
                              "sort='locality')")
     prep = _prepared(X, 'rmsd', device, mesh, tile,
                      precision=precision or 'fp32', sort=sort)
-    perm = prep.perm
-    n = prep.n
-    sharded = isinstance(prep, ShardedRMSDFrames)
-    n_pad = prep.n_local * prep.n_shards if sharded \
-        else prep.frames_r.shape[1]
-
-    if k_max is None:
-        k_max = int(n_clusters) if n_clusters is not None else n
-    k_max = int(min(k_max, n))
-    n_clusters_eff = int(min(n_clusters or n, k_max))
-    cutoff_eff = float(np.float32(dist_cutoff if dist_cutoff is not None
-                                  else 0.0))
-
-    dist = np.full((1, n_pad), np.inf, np.float32)
-    assig = np.full((1, n_pad), -1, np.int32)
-    if init_distances is not None:
-        # the warm start comes in the caller's order, the layout may not
-        order = slice(None) if perm is None else perm
-        dist[0, :n] = np.asarray(init_distances)[order]
-        assig[0, :n] = np.asarray(init_assignments)[order]
-    dist[0, n:] = -math.inf
-
-    if sharded:
-        n_local = prep.n_local
-
-        def local(a, s):
-            lo = (prep.first_shard + s) * n_local
-            return torch.from_numpy(a[:, lo:lo + n_local].copy()).to(
-                prep.shards[s].g.device)
+    k_max, n_clusters, cutoff, dist, assig = _loop_start(
+        prep, n_clusters, dist_cutoff, k_max, init_distances,
+        init_assignments)
+    dist, assig = [d[None] for d in dist], [a[None] for a in assig]
+    if _sharded(prep):
         before = mesh.n_collectives
         with trace_region('enspara/kcenters.sharded'):
-            state, ctr, n_found = _kcenters_loop_fused_sharded(
-                prep, [local(dist, s) for s in range(len(prep.shards))],
-                [local(assig, s) for s in range(len(prep.shards))],
-                int(n_init_centers), n_clusters_eff, cutoff_eff, k_max,
-                mesh, tri_skip=tri_skip)
-        dists = host_fetch(state.dist, mesh, axis=1)[0, :n]
-        assigs = host_fetch(state.assig, mesh, axis=1)[0, :n]
+            _, ctr, n_found = _kcenters_loop_fused_sharded(
+                prep, dist, assig, int(n_init_centers), n_clusters, cutoff,
+                k_max, mesh, tri_skip=tri_skip)
+        res = _loop_results(prep, mesh, dist, assig, ctr, n_found,
+                            n_init_centers, init_center_indices)
         kcenters_device_fused.n_collectives = mesh.n_collectives - before
-    else:
-        dev = prep.frames_r.device
-        dist_t = torch.from_numpy(dist).to(dev)
-        assig_t = torch.from_numpy(assig).to(dev)
-        ctr, n_found = _kcenters_loop(prep, dist_t, assig_t,
-                                      int(n_init_centers), n_clusters_eff,
-                                      cutoff_eff, k_max, skip=tri_skip)
-        dists = dist_t[0, :n].cpu().numpy()
-        assigs = assig_t[0, :n].cpu().numpy()
-    ctr_inds = ctr[:n_found].cpu().numpy().astype(np.int64)
-    if perm is not None:
-        # layout position i is the caller's frame perm[i]
-        dists_o, assigs_o = np.empty_like(dists), np.empty_like(assigs)
-        dists_o[perm], assigs_o[perm] = dists, assigs
-        dists, assigs = dists_o, assigs_o
-        placed = ctr_inds >= 0
-        ctr_inds[placed] = perm[ctr_inds[placed]]
-    if init_center_indices is not None:
-        ctr_inds[:n_init_centers] = init_center_indices
-    return KCentersDeviceResult(dists.astype(np.float64),
-                                assigs.astype(np.int64), ctr_inds, n_found)
+        return res
+    ctr, n_found = _kcenters_loop(prep, dist[0], assig[0],
+                                  int(n_init_centers), n_clusters, cutoff,
+                                  k_max, skip=tri_skip)
+    return _loop_results(prep, None, dist, assig, ctr, n_found,
+                         n_init_centers, init_center_indices)
 
 
 # the collectives over the processes of the last sharded call (the loop
@@ -844,67 +838,43 @@ kcenters_device_fused.n_collectives = 0
 kcenters_device_fused.n_replays = 0
 
 
-def _feature_shards(prep):
-    return prep.shards if isinstance(prep, ShardedFeatures) else (prep,)
-
-
 def _kcenters_loop_features(prep, dist, assig, n_start, n_clusters,
                             dist_cutoff, k_max, mesh=None):
     """The k-centers loop of the JAX package's ``_kcenters_loop``
-    (``engine.py:79-116``) over feature vectors, on one device or over
-    the shards of ``mesh``.
+    (``engine.py:79-116``) over feature vectors, on one device (a mesh
+    of one shard) or over the shards of ``mesh``.
 
     ``prep`` is a :class:`PreparedFeatures` (``mesh=None``) or a
-    :class:`ShardedFeatures` laid out for ``mesh``; ``dist``/``assig`` are lists of this process's per-shard (n_local,)
-    float32/int32 state (-inf past the real frames), rebound in place.
-    Each iteration takes the first max of the distances as the next
-    center (over a mesh: each shard's max and first argmax, then the
-    global first max of :func:`_global_best`, the owner's row summed
-    into every shard), measures every frame against it in the
-    difference form and keeps the strictly smaller distance. The host
-    reads ``(i, md)`` once per ``CHUNK`` iterations; a device flag
-    leaves the state untouched past the stop rule (``n_clusters``
-    centers, or ``max(dist) <= dist_cutoff``).
+    :class:`ShardedFeatures` laid out for ``mesh``; ``dist``/``assig``
+    are lists of this process's per-shard (n_local,) float32/int32 state
+    (-inf past the real frames), rebound in place. Each iteration takes
+    the first max of the distances as the next center (each shard's max
+    and first argmax, then the global first max of
+    :func:`~enspara_tpu_torch.parallel.ops.global_argmax`; the owner's
+    row reaches every shard by
+    :func:`~enspara_tpu_torch.parallel.ops.distribute_frames`), measures
+    every frame against it in the difference form and keeps the strictly
+    smaller distance. The host reads ``(i, md)`` once per ``CHUNK``
+    iterations; a device flag leaves the state untouched past the stop
+    rule (``n_clusters`` centers, or ``max(dist) <= dist_cutoff``).
 
     Returns ``(ctr (k_max,) int32, n_found)``; ``ctr`` holds -1 in the
     warm-start slots.
     """
-    shards = _feature_shards(prep)
-    lead = shards[0].device if mesh is None else mesh.lead
-    n_local = shards[0].n_pad
-    first = prep.first_shard if mesh is not None else 0
-    starts = torch.arange(first, first + len(shards), dtype=torch.int32,
-                          device=lead) * n_local
-    shard_ids = torch.arange(first, first + len(shards), dtype=torch.int32,
-                             device=lead)
+    shards = _shards(prep)[0]
+    if mesh is None:
+        mesh = FrameMesh((prep.device,))
     cutoff = float(np.float32(dist_cutoff))
 
     def best():
         """(md, gidx): the max distance and its first global index."""
-        if mesh is None:
-            md, arg = dist[0].max(0)
-            return md, arg.to(torch.int32)
-        lm, la = zip(*(d.max(0) for d in dist))
-        md, gidx = _global_best(mesh, lm, [a.to(torch.int32) for a in la],
-                                starts)
-        return md.reshape(()), gidx.reshape(())
+        with trace_region('enspara/kcenters.global_best'):
+            md, gidx = global_argmax(dist, mesh)
+        return md, gidx.to(torch.int32)
 
-    def center_row(gidx):
-        """The center's (1, d) row, on the lead device."""
-        if mesh is None:
-            return shards[0].data.index_select(0, gidx.reshape(1).long())
-        owner = torch.div(gidx, n_local, rounding_mode='floor')
-        lidx = (gidx - owner * n_local).reshape(1).long()
-        parts = []
-        for s, sh in enumerate(shards):
-            row = sh.data.index_select(0, lidx.to(sh.device)).to(lead)
-            parts.append(torch.where(shard_ids[s] == owner, row,
-                                     torch.zeros_like(row)))
-        return mesh.all_reduce(torch.stack(parts).sum(0, dtype=row.dtype))
-
-    i = torch.full((), int(n_start), dtype=torch.int32, device=lead)
+    i = torch.full((), int(n_start), dtype=torch.int32, device=mesh.lead)
     # slot k_max takes the writes of the iterations past the stop
-    ctr = torch.full((k_max + 1,), -1, dtype=torch.int32, device=lead)
+    ctr = torch.full((k_max + 1,), -1, dtype=torch.int32, device=mesh.lead)
     md, gidx = best()
     while True:
         h = torch.stack((i.double(), md.double())).cpu()
@@ -915,11 +885,11 @@ def _kcenters_loop_features(prep, dist, assig, n_start, n_clusters,
             go = (i < n_clusters) & (md > cutoff)
             ctr.index_put_((torch.where(go, i, k_max).reshape(1).long(),),
                            gidx.reshape(1))
-            row = center_row(gidx)
+            rows = distribute_frames([sh.data for sh in shards],
+                                     gidx.reshape(1), mesh)
             for s, sh in enumerate(shards):
                 g1, i1 = go.to(sh.device), i.to(sh.device)
-                d_new = distance_to_point(sh.data, row.to(sh.device)[0],
-                                          prep.metric)
+                d_new = distance_to_point(sh.data, rows[s][0], prep.metric)
                 upd = (d_new < dist[s]) & g1
                 dist[s] = torch.where(upd, d_new, dist[s])
                 assig[s] = torch.where(upd, i1, assig[s])
@@ -978,41 +948,14 @@ def kcenters_device(X, metric='euclidean', n_clusters=None,
                          '(the tri-skip layout lives in the fused '
                          'Pallas path)')
     prep = _prepared(X, metric, device, mesh)
-    n = prep.n
-    if k_max is None:
-        k_max = int(n_clusters) if n_clusters is not None else n
-    k_max = int(min(k_max, n))
-    n_clusters_eff = int(min(n_clusters or n, k_max))
-    cutoff_eff = float(np.float32(dist_cutoff if dist_cutoff is not None
-                                  else 0.0))
-
-    shards = _feature_shards(prep)
-    sharded = isinstance(prep, ShardedFeatures)
-    n_local = shards[0].n_pad
-    first = prep.first_shard if sharded else 0
-    n_pad = n_local * (prep.n_shards if sharded else 1)
-    dist = np.full(n_pad, np.inf, np.float32)
-    assig = np.full(n_pad, -1, np.int32)
-    if init_distances is not None:
-        dist[:n] = init_distances
-        assig[:n] = init_assignments
-    dist[n:] = -math.inf
-
-    def local(a):
-        return [torch.from_numpy(a[lo:lo + n_local].copy()).to(sh.device)
-                for lo, sh in zip(range((first * n_local), n_pad, n_local),
-                                  shards)]
-    dists, assigs = local(dist), local(assig)
+    k_max, n_clusters, cutoff, dist, assig = _loop_start(
+        prep, n_clusters, dist_cutoff, k_max, init_distances,
+        init_assignments)
     ctr, n_found = _kcenters_loop_features(
-        prep, dists, assigs, int(n_init_centers), n_clusters_eff,
-        cutoff_eff, k_max, mesh if sharded else None)
-    dists = host_fetch(dists, mesh)[:n]
-    assigs = host_fetch(assigs, mesh)[:n]
-    ctr_inds = ctr[:n_found].cpu().numpy().astype(np.int64)
-    if init_center_indices is not None:
-        ctr_inds[:n_init_centers] = init_center_indices
-    return KCentersDeviceResult(dists.astype(np.float64),
-                                assigs.astype(np.int64), ctr_inds, n_found)
+        prep, dist, assig, int(n_init_centers), n_clusters, cutoff, k_max,
+        mesh)
+    return _loop_results(prep, mesh, dist, assig, ctr, n_found,
+                         n_init_centers, init_center_indices)
 
 
 # ---------------------------------------------------------------------
@@ -1060,7 +1003,7 @@ def _pairwise_block(prep, cols, rows=None, mesh=None):
     shard: that shard's rows (``rows``: one vector of local indices per
     shard) against the columns ``cols``, given by global frame index and
     brought to every shard by :func:`_columns`."""
-    if isinstance(prep, (ShardedRMSDFrames, ShardedFeatures)):
+    if _sharded(prep):
         return _pairwise_blocks_sharded(prep, cols, rows, mesh)
     if isinstance(prep, PreparedFeatures):
         data = prep.data
@@ -1231,7 +1174,7 @@ def assign_device(X, centers, metric='euclidean', device=None, mesh=None):
                             else 'locality'))
     if metric != 'rmsd':
         C = _prepare_data(centers, metric)
-        shards = _feature_shards(prep)
+        shards = _shards(prep)[0]
         if C.shape[1] != shards[0].data.shape[1]:
             raise ValueError('centers must be (k, %d), got %s'
                              % (shards[0].data.shape[1], tuple(C.shape)))

@@ -134,28 +134,24 @@ def _pam_sweeps(prep, d1, a1, medoid_inds, sweep_bits, bucket, batch=64,
     """PAM sweeps over ``prep``'s frames from the warm start ``(d1,
     a1)``, one per entry of ``sweep_bits``.
 
-    On one device ``d1``/``a1`` are (n_pad,) float32/int32 on ``prep``'s
-    device (inf and -1 past ``prep.n``); for a sharded ``prep`` they are
-    lists of this process's (n_local,) per-shard tensors, and ``mesh``
-    is the mesh ``prep`` was laid out for. ``medoid_inds`` (k,) int64
-    global frame indices; ``sweep_bits`` yields one int64 tensor of
-    random uint32 values per sweep, of which the first ``prep.n`` are
-    used (the JAX module draws ``jax.random.bits(fold_in(key, s),
-    (n_pad,), uint32)``). Returns ``(d1, a1, medoid_inds)`` in the form
-    ``d1``/``a1`` came in.
+    ``d1``/``a1`` are lists of this process's (n_local,) per-shard
+    float32/int32 tensors (inf and -1 past ``prep.n``): one for a
+    one-device ``prep``, which runs as a mesh of one shard; for a
+    sharded ``prep``, ``mesh`` is the mesh it was laid out for.
+    ``medoid_inds`` (k,) int64 global frame indices; ``sweep_bits``
+    yields one int64 tensor of random uint32 values per sweep, of which
+    the first ``prep.n`` are used (the JAX module draws
+    ``jax.random.bits(fold_in(key, s), (n_pad,), uint32)``). Returns
+    ``(d1, a1, medoid_inds)``, the first two as per-shard lists.
     """
-    sharded = isinstance(prep, (engine.ShardedRMSDFrames,
-                                engine.ShardedFeatures))
+    shards, n_local, first = engine._shards(prep)
+    sharded = engine._sharded(prep)
     if sharded:
         if mesh is None or mesh.size != prep.n_shards:
             raise ValueError('sharded frames need the mesh they were laid '
                              'out for (%d shards)' % prep.n_shards)
-        shards, n_local = prep.shards, prep.n_local
-        first = prep.first_shard
     else:
-        shards, n_local, first = (prep,), prep.n_pad, 0
         mesh = FrameMesh((prep.device,))
-        d1, a1 = [d1], [a1]
     lead = mesh.lead
     S = range(len(shards))
     devs = [sh.device for sh in shards]
@@ -337,9 +333,7 @@ def _pam_sweeps(prep, d1, a1, medoid_inds, sweep_bits, bucket, batch=64,
                     d2, a2 = repair(a1, d2, a2, stale, medoid_inds)
                 # nothing of this batch's block outlives it
                 Dt = dnew = None
-    if sharded:
-        return d1, a1, medoid_inds
-    return d1[0], a1[0], medoid_inds
+    return d1, a1, medoid_inds
 
 
 # host reads of device scalars made by _pam_sweeps: two a batch, one a
@@ -398,35 +392,15 @@ def kmedoids_sweeps_device(X, metric, assignments, distances, medoid_inds,
     """
     device, mesh = resolve_placement(X, device, mesh, small_job_rule=True)
     prep = engine._prepared(X, metric, device, mesh)
-    sharded = isinstance(prep, (engine.ShardedRMSDFrames,
-                                engine.ShardedFeatures))
     n, k = prep.n, len(medoid_inds)
     bucket = int(min(n, max(64, bucket_factor * ((n + k - 1) // k))))
-    if sharded:
-        shards, n_local, first = prep.shards, prep.n_local, prep.first_shard
-        lead = mesh.lead
-    else:
-        shards, n_local, first = (prep,), prep.n_pad, 0
-        lead = prep.device
-    n_pad = n_local * (prep.n_shards if sharded else 1)
-
-    d1 = np.full(n_pad, np.inf, np.float32)
-    d1[:n] = distances
-    a1 = np.full(n_pad, -1, np.int32)
-    a1[:n] = assignments
-
-    def local(a):
-        return [torch.from_numpy(a[(first + s) * n_local:][:n_local].copy())
-                .to(sh.device) for s, sh in enumerate(shards)]
-    d1_l, a1_l = local(d1), local(a1)
-    d1_out, a1_out, m_out = _pam_sweeps(
-        prep, d1_l if sharded else d1_l[0], a1_l if sharded else a1_l[0],
-        np.asarray(medoid_inds, dtype=np.int64),
+    lead = prep.device if mesh is None else mesh.lead
+    d1 = engine._local_rows(prep, distances, np.inf, np.float32)
+    a1 = engine._local_rows(prep, assignments, -1, np.int32)
+    d1, a1, m_out = _pam_sweeps(
+        prep, d1, a1, np.asarray(medoid_inds, dtype=np.int64),
         sweep_bits(seed, n_sweeps, n, lead), bucket,
-        batch=int(proposal_batch), mesh=mesh if sharded else None)
-    if sharded:
-        d_out, a_out = host_fetch(d1_out, mesh), host_fetch(a1_out, mesh)
-    else:
-        d_out, a_out = d1_out.cpu().numpy(), a1_out.cpu().numpy()
+        batch=int(proposal_batch), mesh=mesh)
+    d_out, a_out = host_fetch(d1, mesh), host_fetch(a1, mesh)
     return (m_out.cpu().numpy().astype(np.int64),
             d_out[:n].astype(np.float64), a_out[:n].astype(np.int64))

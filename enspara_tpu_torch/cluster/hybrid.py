@@ -10,7 +10,7 @@ from ..exception import ImproperlyConfigured
 
 from . import engine, util
 from .engine_kmedoids import kmedoids_sweeps_device
-from .kcenters import kcenters as _kcenters
+from .kcenters import _kcenters
 from .kmedoids import _kmedoids_iterations
 from .util import run_timed
 from ..parallel.mesh import resolve_placement
@@ -69,13 +69,14 @@ def hybrid(X, distance_method, n_iters=5, n_clusters=None,
     device sweeps over them. With neither ``device`` nor ``mesh``, host
     data runs where the JAX function's k-centers stage does: on the
     current card for frames of fewer than ``SMALL_JOB_FEATURES``
-    features, over every visible card for more; both stages run
-    there."""
+    features, over every visible card for more; both stages run there.
+    The device sweeps take the frames as the k-centers stage laid them
+    out: a fit lays them out once."""
     device, mesh = resolve_placement(X, device, mesh, small_job_rule=True)
     random_state = check_random_state(random_state)
 
     with trace_region('enspara/khybrid.kcenters'):
-        result = _kcenters(
+        result, prep = _kcenters(
             X, distance_method, n_clusters=n_clusters,
             dist_cutoff=dist_cutoff, init_centers=init_centers,
             random_first_center=random_first_center,
@@ -93,7 +94,7 @@ def hybrid(X, distance_method, n_iters=5, n_clusters=None,
             list(np.asarray(result.center_indices)),
             np.asarray(result.assignments),
             np.asarray(result.distances),
-            random_state=random_state, device=device, mesh=mesh)
+            random_state=random_state, device=device, mesh=mesh, prep=prep)
 
 
 def hybrid_device(X, metric='rmsd', n_iters=5, n_clusters=None,

@@ -109,7 +109,6 @@ class KCenters(util.MolecularClusterMixin):
         return self
 
 
-@cite('kcenters')
 def kcenters(traj, distance_method, n_clusters=None, dist_cutoff=None,
              init_centers=None, random_first_center=False,
              random_state=None, device=None, mesh=None, precision='fp32',
@@ -132,6 +131,20 @@ def kcenters(traj, distance_method, n_clusters=None, dist_cutoff=None,
     with host arrays: assignments and distances of every frame, the
     center frame indices, and the center coordinates.
     """
+    return _kcenters(traj, distance_method, n_clusters=n_clusters,
+                     dist_cutoff=dist_cutoff, init_centers=init_centers,
+                     random_first_center=random_first_center,
+                     random_state=random_state, device=device, mesh=mesh,
+                     precision=precision, sort=sort)[0]
+
+
+@cite('kcenters')
+def _kcenters(traj, distance_method, n_clusters=None, dist_cutoff=None,
+              init_centers=None, random_first_center=False,
+              random_state=None, device=None, mesh=None, precision='fp32',
+              sort=None):
+    """:func:`kcenters`, and the frames it laid out for a built-in metric
+    (None for a callable one), which k-hybrid's PAM stage takes over."""
     if n_clusters is None and dist_cutoff is None:
         raise ImproperlyConfigured(
             "KCenters must specify 'n_clusters' or 'dist_cutoff'")
@@ -166,7 +179,7 @@ def kcenters(traj, distance_method, n_clusters=None, dist_cutoff=None,
             "precision='bf16' requires a built-in metric on the device "
             "path (callable metrics run on the host)")
     return _kcenters_host(traj, util._get_distance_method(distance_method),
-                          n_clusters, dist_cutoff, init_centers)
+                          n_clusters, dist_cutoff, init_centers), None
 
 
 def kcenters_mpi(traj, distance_method, **kwargs):
@@ -233,7 +246,7 @@ def _kcenters_fast(X, metric, n_clusters, dist_cutoff, init_centers,
                 res.n_found, res.distances.max(initial=0.0))
     return util.ClusterResult(center_indices=ctr_inds,
                               assignments=res.assignments,
-                              distances=res.distances, centers=centers)
+                              distances=res.distances, centers=centers), prep
 
 
 def _kcenters_host(traj, distance_method, n_clusters, dist_cutoff,

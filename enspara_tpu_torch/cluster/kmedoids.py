@@ -192,7 +192,7 @@ def _inputs_tree(X, metric, n_clusters, assignments, distances,
 def _kmedoids_iterations(X, metric, n_iters, cluster_center_inds,
                          assignments, distances, proposals=None,
                          random_state=None, backend='auto', device=None,
-                         mesh=None):
+                         mesh=None, prep=None):
     """``n_iters`` PAM sweeps from a warm start.
 
     ``backend='auto'`` runs the sweeps on the device when the data is on
@@ -201,7 +201,10 @@ def _kmedoids_iterations(X, metric, n_iters, cluster_center_inds,
     is a named one and no explicit proposals were given; the host path
     runs otherwise (on the mesh's lead device) or with
     ``backend='host'``. The two draw proposals from different
-    generators, so they agree in distribution, not bit for bit.
+    generators, so they agree in distribution, not bit for bit. The
+    device sweeps take ``prep``, ``X``'s frames as k-centers laid them
+    out for ``metric``, ``device`` and ``mesh``, in place of laying them
+    out again.
     """
     if backend not in ('auto', 'host', 'device'):
         raise DataInvalid("backend must be 'auto', 'host' or "
@@ -217,7 +220,8 @@ def _kmedoids_iterations(X, metric, n_iters, cluster_center_inds,
 
         rs = check_random_state(random_state)
         m, d, a = kmedoids_sweeps_device(
-            _xyz(X), metric_name, np.asarray(assignments),
+            _xyz(X) if prep is None else prep, metric_name,
+            np.asarray(assignments),
             np.asarray(distances, dtype=np.float64),
             np.asarray(cluster_center_inds),
             n_sweeps=n_iters, seed=int(rs.randint(2 ** 31)), device=device,

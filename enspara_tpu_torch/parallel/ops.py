@@ -42,8 +42,6 @@ __all__ = ['striped_max', 'striped_mean', 'global_argmax',
            'assemble_striped_array', 'assemble_striped_ragged_array',
            'convert_local_indices', 'randind']
 
-_IMAX = torch.iinfo(torch.int64).max
-
 
 def local_shard_bounds(n_local, shard):
     """``(start, stop)`` global indices of shard ``shard``'s rows under
@@ -80,10 +78,10 @@ def global_argmax(xs, mesh):
     n_local = xs[0].shape[0]
     vals, args = [], []
     for s, x in enumerate(xs):
-        la = torch.argmax(x, dim=0)
-        vals.append(x.gather(0, la.unsqueeze(0))[0])
-        args.append(la + local_shard_bounds(n_local,
-                                            mesh.first_shard + s)[0])
+        v, la = x.max(0)
+        start = local_shard_bounds(n_local, mesh.first_shard + s)[0]
+        vals.append(v)
+        args.append(la + start if start else la)
     return argmax_over_shards(vals, args, mesh)
 
 
@@ -91,11 +89,24 @@ def argmax_over_shards(vals, args, mesh):
     """The global step of :func:`global_argmax`, from each local
     shard's max ``vals`` and the global index ``args`` of its first
     frame holding it (one same-shaped pair per shard): the max over the
-    mesh and the smallest global index holding it, on the lead device."""
-    vals = mesh.all_gather(torch.stack([v.to(mesh.lead) for v in vals]))
-    args = mesh.all_gather(torch.stack([a.to(mesh.lead) for a in args]))
+    mesh and the smallest global index holding it, on the lead device,
+    in the dtypes of ``vals`` and ``args``. Over processes each value
+    and its index cross as one float64 pair, in one collective: float64
+    holds float32 values, integers below 2**53 (int32 indices, PAM's
+    uint32 priorities, global indices) and their order exactly. No host
+    read: a CUDA graph can capture it. A mesh of one shard returns its
+    pair as it is."""
+    if len(vals) == 1 and not mesh.spans_processes:
+        return vals[0].to(mesh.lead), args[0].to(mesh.lead)
+    vals = torch.stack([v.to(mesh.lead) for v in vals])
+    args = torch.stack([a.to(mesh.lead) for a in args])
+    if mesh.spans_processes:
+        both = mesh.all_gather(torch.stack((vals.double(), args.double()),
+                                           dim=1))
+        vals, args = both[:, 0].to(vals.dtype), both[:, 1].to(args.dtype)
     best = vals.amax(0)
-    return best, torch.where(vals == best, args, _IMAX).amin(0)
+    return best, torch.where(vals == best, args,
+                             torch.iinfo(args.dtype).max).amin(0)
 
 
 def owned_rows(global_indices, n_local, shard):
@@ -113,17 +124,22 @@ def distribute_frames(xs, global_indices, mesh, dim=0):
     each shard picks the frames it owns and zeros for the rest, and one
     owner-masked sum over the mesh completes them (the reference's Bcast
     from the owner, for the whole vector at once; the dtype is kept).
-    Returns one tensor per local shard, on its device."""
+    Returns one tensor per local shard, on its device; a mesh of one
+    shard picks the frames, with no mask and no sum."""
+    gi = torch.as_tensor(global_indices, device=mesh.lead).long()
+    if len(xs) == 1 and not mesh.spans_processes:
+        return [xs[0].index_select(dim, gi.to(xs[0].device))]
     n_local = xs[0].shape[dim]
+    # every shard picks the owner's local row; the owner's alone counts
+    owner = torch.div(gi, n_local, rounding_mode='floor')
+    li = gi - owner * n_local
+    shape = [1] * xs[0].ndim
+    shape[dim] = -1
     parts = []
     for s, x in enumerate(xs):
-        gi = torch.as_tensor(global_indices, device=x.device).long()
-        li, own = owned_rows(gi, n_local, mesh.first_shard + s)
-        picked = x.index_select(dim, li)
-        shape = [1] * picked.ndim
-        shape[dim] = -1
-        parts.append(torch.where(own.view(shape), picked,
-                                 torch.zeros_like(picked)))
+        own = (owner == mesh.first_shard + s).to(x.device).view(shape)
+        picked = x.index_select(dim, li.to(x.device))
+        parts.append(torch.where(own, picked, 0).to(picked.dtype))
     out = mesh.reduce(parts)
     return [out.to(d) for d in mesh.devices]
 

@@ -39,7 +39,9 @@ these spans:
   shards that the host issues), ``enspara/kcenters.capture`` (the
   capture of a chunk as a CUDA graph, one a loop that takes the graph)
   and ``enspara/kcenters.replay`` (the host's launch of one replay of
-  that graph);
+  that graph); the feature k-centers loop of ``kcenters_device``
+  opens ``enspara/kcenters.global_best`` too, around each of its
+  searches, on one device and over shards alike;
 - ``enspara/mesh.all_reduce``, ``enspara/mesh.all_gather``: one
   collective over the processes of a ``FrameMesh`` that the host issues
   (its enqueueing; its copies through host memory where staged), eager

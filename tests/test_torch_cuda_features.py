@@ -156,8 +156,8 @@ def test_cuda_feature_pam_sweeps_match_cpu(cuda):
         d1 = torch.from_numpy(res.distances.astype(np.float32)).to(dev)
         a1 = torch.from_numpy(res.assignments.astype(np.int32)).to(dev)
         before = _launches()
-        d, a, m = engine_kmedoids._pam_sweeps(
-            prep, d1, a1, res.center_indices, bits, 8 * 200, batch=16)
+        (d,), (a,), m = engine_kmedoids._pam_sweeps(
+            prep, [d1], [a1], res.center_indices, bits, 8 * 200, batch=16)
         assert _launches() == before
         out[str(dev)] = (d.cpu().numpy(), a.cpu().numpy(), m.cpu().numpy())
     (dc, ac, mc), (dg, ag, mg) = out.values()

@@ -10,14 +10,16 @@ distances and the skip rule give, the two kernels bit for bit against
 each other when nothing skips, and the mesh paths (the sharded loop,
 sharded assignment, sharded counts, lag-sharded timescales, the PAM
 sweeps with kernel 5 on every shard) on four virtual shards of one card
-against the same on the CPU or on one device.
+against the same on the CPU or on one device. A k-hybrid fit lays its
+frames out once, on two CPU shards and on the card.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from enspara_tpu_torch.cluster import engine, engine_kmedoids
+from enspara_tpu_torch.cluster import (KHybrid, engine, engine_kmedoids,
+                                       kcenters)
 from enspara_tpu_torch.msm import (assigns_to_counts_sharded,
                                    implied_timescales_batched)
 from enspara_tpu_torch.ops import kcenters_step, qcp_matrix, qcp_update
@@ -232,3 +234,40 @@ def test_cuda_sharded_pam_matches_cpu(cuda, monkeypatch):
             ((X - X.mean(1, keepdims=True)) ** 2).sum((1, 2)).max()), 16)
     assert not np.array_equal(rc[0], seed.center_indices)
     assert np.mean(rm[1] ** 2) < np.mean(seed.distances ** 2)
+
+
+@pytest.mark.parametrize('place', ['two CPU shards',
+                                   pytest.param('one card',
+                                                marks=pytest.mark.cuda)])
+def test_khybrid_lays_out_its_frames_once(place, request, monkeypatch):
+    """A ``KHybrid`` fit that takes the device sweeps lays its frames out
+    once: the k-centers stage's layout serves the sweeps. It equals the
+    two stages run by hand from the same draws (the first center's seed,
+    then the sweeps' seed), which lay the frames out twice."""
+    if place == 'one card':
+        kw = dict(device=request.getfixturevalue('cuda'))
+    else:
+        kw = dict(mesh=FrameMesh(['cpu'] * 2))
+    X = basin_data(np.random.default_rng(7), 3_000, 16, n_basins=40,
+                   noise=0.1)
+    real, calls = engine.prepare_rmsd_frames, []
+
+    def spy(*args, **kwargs):
+        calls.append(kwargs)
+        return real(*args, **kwargs)
+    monkeypatch.setattr(engine, 'prepare_rmsd_frames', spy)
+    fit = KHybrid('rmsd', n_clusters=8, kmedoids_updates=2,
+                  random_first_center=True, random_state=6,
+                  **kw).fit(X).result_
+    assert len(calls) == 1
+    rs = np.random.RandomState(6)
+    kc = kcenters(X, 'rmsd', n_clusters=8, random_first_center=True,
+                  random_state=rs.randint(2 ** 31), **kw)
+    m, d, a = engine_kmedoids.kmedoids_sweeps_device(
+        X, 'rmsd', kc.assignments, kc.distances, kc.center_indices,
+        n_sweeps=2, seed=rs.randint(2 ** 31), **kw)
+    assert len(calls) == 3
+    assert not np.array_equal(m, kc.center_indices)
+    np.testing.assert_array_equal(fit.center_indices, m)
+    np.testing.assert_array_equal(fit.assignments, a)
+    np.testing.assert_array_equal(fit.distances, d)

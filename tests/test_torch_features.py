@@ -228,8 +228,8 @@ def test_pam_sweeps_euclidean_match_jax():
     assert prep.n_pad == n and prep.device == torch.device('cpu')
     bits = [torch.from_numpy(_jax_bits(key, s, n)) for s in range(n_sweeps)]
     n0 = qcp_matrix.qcp_rmsd_matrix_kernel.n_launches
-    pd, pa, pm = engine_kmedoids._pam_sweeps(
-        prep, torch.from_numpy(d1), torch.from_numpy(a1),
+    (pd,), (pa,), pm = engine_kmedoids._pam_sweeps(
+        prep, [torch.from_numpy(d1)], [torch.from_numpy(a1)],
         minds.astype(np.int64), bits, bucket, batch=batch)
     assert qcp_matrix.qcp_rmsd_matrix_kernel.n_launches == n0
     np.testing.assert_array_equal(pm.numpy(), np.asarray(jm))

@@ -140,10 +140,10 @@ def _sweeps_match_jax(n, k, n_sweeps, batch):
         bits.append(torch.from_numpy(b))
     pad = np.full(n_pad - n, np.inf, np.float32)
     syncs = engine_kmedoids._pam_sweeps.n_host_syncs
-    pd, pa, pm = engine_kmedoids._pam_sweeps(
-        prep, torch.from_numpy(np.concatenate([d1, pad])),
-        torch.from_numpy(np.concatenate([a1, np.full(n_pad - n, -1,
-                                                     np.int32)])),
+    (pd,), (pa,), pm = engine_kmedoids._pam_sweeps(
+        prep, [torch.from_numpy(np.concatenate([d1, pad]))],
+        [torch.from_numpy(np.concatenate([a1, np.full(n_pad - n, -1,
+                                                      np.int32)]))],
         minds.astype(np.int64), bits, bucket, batch=batch)
     np.testing.assert_array_equal(pm.numpy(), np.asarray(jm))
     np.testing.assert_array_equal(pa.numpy()[:n], np.asarray(ja))

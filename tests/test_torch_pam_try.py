@@ -164,11 +164,10 @@ def frozen_sweeps(prep, d1, a1, medoid_inds, sweep_bits, bucket, batch,
     sharded = mesh is not None
     if sharded:
         shards, n_local, first = prep.shards, prep.n_local, prep.first_shard
-        d1, a1 = list(d1), list(a1)
     else:
         shards, n_local, first = (prep,), prep.n_pad, 0
         mesh = FrameMesh((prep.device,))
-        d1, a1 = [d1], [a1]
+    d1, a1 = list(d1), list(a1)
     lead, S = mesh.lead, range(len(shards))
     devs = [sh.device for sh in shards]
     starts = [(first + s) * n_local for s in S]
@@ -310,9 +309,7 @@ def frozen_sweeps(prep, d1, a1, medoid_inds, sweep_bits, bucket, batch,
                 stale = new_stale
             if read(total([st.sum() for st in stale]))[0] > 0:
                 d2, a2 = repair(a1, d2, a2, stale, medoid_inds)
-    if sharded:
-        return d1, a1, medoid_inds
-    return d1[0], a1[0], medoid_inds
+    return d1, a1, medoid_inds
 
 
 @pytest.mark.parametrize('shards', [None, 2])
@@ -331,9 +328,8 @@ def test_sweep_reads_once_a_try_and_equals_the_two_read_sweep(shards):
     a1[:n] = warm.assignments
 
     def local(a):
-        parts = [torch.from_numpy(a[s * n_local:(s + 1) * n_local].copy())
-                 for s in range(shards or 1)]
-        return parts if mesh else parts[0]
+        return [torch.from_numpy(a[s * n_local:(s + 1) * n_local].copy())
+                for s in range(shards or 1)]
 
     def bits():
         return engine_kmedoids.sweep_bits(9, n_sweeps, n, 'cpu')

@@ -81,20 +81,119 @@ def test_shard_frames_matches_jax():
                                     for c in copies)
 
 
-@pytest.mark.parametrize('case', ['cross_shard_tie', 'all_equal'])
+@pytest.mark.parametrize('case', ['cross_shard_tie', 'all_equal',
+                                  'uint32_priorities', 'indices_past_2_31'])
 def test_global_argmax_ties(case):
     """Ties across shards go to the smallest global index: the serial
-    ``np.argmax`` and the JAX package's ``global_argmax``."""
+    ``np.argmax`` and, for float32 values, the JAX package's
+    ``global_argmax``; PAM's int64 priorities (uint32 values) and global
+    indices past 2**31 come back exactly."""
     x = np.random.default_rng(1).random(64).astype(np.float32)
-    if case == 'cross_shard_tie':
+    if case == 'uint32_priorities':
+        x = np.random.default_rng(1).integers(0, 2 ** 32 - 2, 64)
+        x[[41, 9, 60]] = 2 ** 32 - 1       # shards 5, 1 and 7 of 8
+    elif case == 'cross_shard_tie':
         x[[41, 9, 60]] = 2.0               # shards 5, 1 and 7 of 8
-    else:
+    elif case == 'all_equal':
         x[:] = 0.5
     shards, _ = mesh.shard_frames(x, _cpu_mesh())
+    if case == 'indices_past_2_31':
+        # the shards of a vector whose first frame is 2**33 + 5
+        base = 2 ** 33 + 5
+        x[[17, 50]] = 3.0
+        la = [torch.argmax(s) for s in shards]
+        val, idx = ops.argmax_over_shards(
+            [s[a] for s, a in zip(shards, la)],
+            [a + base + 8 * i for i, a in enumerate(la)], _cpu_mesh())
+        assert idx.dtype == torch.int64
+        assert int(idx) == base + int(np.argmax(x)) == base + 17
+        assert float(val) == 3.0
+        return
     val, idx = ops.global_argmax(shards, _cpu_mesh())
-    j_val, j_idx = _in_shard_map(lambda v: jops.global_argmax(v), x)
-    assert int(idx) == int(np.argmax(x)) == int(j_idx)
-    assert float(val) == float(x.max()) == float(j_val)
+    assert val.dtype == shards[0].dtype
+    assert int(idx) == int(np.argmax(x))
+    assert val.item() == x.max()
+    if case != 'uint32_priorities':
+        j_val, j_idx = _in_shard_map(lambda v: jops.global_argmax(v), x)
+        assert int(idx) == int(j_idx) and float(val) == float(j_val)
+
+
+@pytest.mark.parametrize('shape', [(40,), (40, 6)])
+def test_mesh_of_one_shard(shape):
+    """On a mesh of one shard, where nothing is masked or summed, the
+    first argmax and the picked frames equal ``np.argmax`` and plain
+    indexing, ties to the first frame, the dtype kept."""
+    x = np.random.default_rng(5).integers(0, 4, shape).astype(np.int64)
+    x[[31, 6]] = 9                         # a tie in every column
+    one = _cpu_mesh(1)
+    val, idx = ops.global_argmax([torch.from_numpy(x)], one)
+    assert val.dtype == idx.dtype == torch.int64
+    np.testing.assert_array_equal(idx.numpy(), np.argmax(x, axis=0))
+    np.testing.assert_array_equal(val.numpy(), x.max(axis=0))
+    gi = torch.tensor([39, 0, 6, 6])
+    (got,) = ops.distribute_frames([torch.from_numpy(x)], gi, one)
+    assert got.dtype == torch.int64
+    np.testing.assert_array_equal(got.numpy(), x[gi.numpy()])
+    if x.ndim == 2:
+        (got,) = ops.distribute_frames([torch.from_numpy(x.T.copy())], gi,
+                                       one, dim=1)
+        np.testing.assert_array_equal(got.numpy(), x.T[:, gi.numpy()])
+
+
+class _ThreadMesh:
+    """Process ``rank`` of ``len(slots)`` for the mesh vocabulary, the
+    processes being threads: ``all_gather`` joins every process's
+    tensor in rank order and counts its calls."""
+    spans_processes = True
+    lead = torch.device('cpu')
+
+    def __init__(self, rank, n_local, slots, barrier):
+        self.rank, self.slots, self.barrier = rank, slots, barrier
+        self.first_shard = rank * n_local
+        self.n_gathers = 0
+
+    def all_gather(self, t, dim=0):
+        self.n_gathers += 1
+        self.slots[self.rank] = t
+        self.barrier.wait()
+        out = torch.cat(self.slots, dim=dim)
+        self.barrier.wait()
+        return out
+
+
+@pytest.mark.parametrize('case', ['float32 vector', 'int64 batch'])
+def test_argmax_over_processes_is_one_collective(case):
+    """Over two processes (threads here) of two shards each, one
+    ``global_argmax`` issues one collective and equals ``np.argmax``,
+    ties across the processes going to the smallest global index: for a
+    float32 vector, and column by column for PAM's (n, B) block of
+    uint32 priorities in int64."""
+    import threading
+
+    rng = np.random.default_rng(4)
+    if case == 'float32 vector':
+        x = rng.random(40).astype(np.float32)
+        x[[33, 12, 25]] = 2.0              # processes 1, 0 and 1
+    else:
+        x = rng.integers(0, 2 ** 32 - 1, (40, 6))
+        x[[33, 12], 2] = x[30, 4] = x[7, 4] = 2 ** 32 - 1
+    blocks = torch.from_numpy(x).chunk(4)
+    slots, barrier = [None, None], threading.Barrier(2)
+    meshes = [_ThreadMesh(r, 2, slots, barrier) for r in range(2)]
+    out = [None, None]
+
+    def run(r):
+        out[r] = ops.global_argmax(blocks[2 * r:2 * r + 2], meshes[r])
+    threads = [threading.Thread(target=run, args=(r,)) for r in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    for (val, idx), m in zip(out, meshes):
+        assert m.n_gathers == 1
+        assert val.dtype == blocks[0].dtype and idx.dtype == torch.int64
+        np.testing.assert_array_equal(idx.numpy(), np.argmax(x, axis=0))
+        np.testing.assert_array_equal(val.numpy(), x.max(axis=0))
 
 
 @pytest.mark.parametrize('dtype', [np.int32, np.float64])

@@ -347,8 +347,8 @@ def test_cuda_cluster_path_matches_cpu(cuda, monkeypatch):
         a1 = torch.full((n_pad,), -1, dtype=torch.int32)
         a1[:5000] = torch.from_numpy(res.assignments.astype(np.int32))
         n0 = qcp_matrix.qcp_rmsd_matrix_kernel.n_launches
-        d, a, m = engine_kmedoids._pam_sweeps(
-            prep, d1.to(dev), a1.to(dev), res.center_indices, bits, 640)
+        (d,), (a,), m = engine_kmedoids._pam_sweeps(
+            prep, [d1.to(dev)], [a1.to(dev)], res.center_indices, bits, 640)
         out[str(dev)] = (d.cpu().numpy()[:5000], a.cpu().numpy()[:5000],
                          m.cpu().numpy(),
                          qcp_matrix.qcp_rmsd_matrix_kernel.n_launches - n0)
