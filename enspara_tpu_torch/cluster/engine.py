@@ -514,25 +514,57 @@ def _local_rows(prep, values, pad, dtype, order=None):
             .to(sh.device) for s, sh in enumerate(shards)]
 
 
+def _on_shards(values):
+    """Whether a warm start's ``values`` are this process's per-shard
+    tensors (a list or tuple of them) rather than host values."""
+    return isinstance(values, (list, tuple)) and len(values) > 0 \
+        and all(isinstance(v, torch.Tensor) for v in values)
+
+
+def _lines_up(src, prep):
+    """Whether per-shard rows of container ``src`` are rows of ``prep``
+    as they lie: the same frame order (``prep`` not locality-sorted),
+    shards of the same length and the same devices."""
+    return getattr(prep, 'perm', None) is None \
+        and _shards(src)[1:] == _shards(prep)[1:] \
+        and [sh.device for sh in _shards(src)[0]] \
+        == [sh.device for sh in _shards(prep)[0]]
+
+
 def _loop_start(prep, n_clusters, dist_cutoff, k_max, init_distances,
                 init_assignments):
     """The k-centers loops' set-up: ``(k_max, n_clusters, cutoff)`` as
     the loops take them, and the state ``(dist, assig)`` as lists of
     this process's (n_local,) float32/int32 shards: the warm start, in
-    layout order, or inf and -1; -inf and -1 past the real frames."""
+    layout order, or inf and -1; -inf and -1 past the real frames.
+
+    The public loops take a warm start as host values in the caller's
+    order, cut into shards here by :func:`_local_rows`. Internally,
+    ``kcenters._kcenters_fast`` passes per-shard tensors instead
+    (:func:`_on_shards`: what :func:`_assign_shards` returns on ``prep``
+    or a container that :func:`_lines_up` with it); they become the
+    state as they lie, their rows past the real frames set on the
+    device."""
     n = prep.n
     if k_max is None:
         k_max = int(n_clusters) if n_clusters is not None else n
     k_max = int(min(k_max, n))
+    head = (k_max, int(min(n_clusters or n, k_max)),
+            float(np.float32(dist_cutoff if dist_cutoff is not None
+                             else 0.0)))
+    if _on_shards(init_distances):
+        for sh, d, a in zip(_shards(prep)[0], init_distances,
+                            init_assignments):
+            d[sh.n:] = -math.inf
+            a[sh.n:] = -1
+        return head + (list(init_distances), list(init_assignments))
     # the warm start comes in the caller's order, the layout may not
     perm = getattr(prep, 'perm', None)
     if init_distances is None:
         init_distances, init_assignments, perm = np.inf, -1, None
-    return (k_max, int(min(n_clusters or n, k_max)),
-            float(np.float32(dist_cutoff if dist_cutoff is not None
-                             else 0.0)),
-            _local_rows(prep, init_distances, -math.inf, np.float32, perm),
-            _local_rows(prep, init_assignments, -1, np.int32, perm))
+    return head + (
+        _local_rows(prep, init_distances, -math.inf, np.float32, perm),
+        _local_rows(prep, init_assignments, -1, np.int32, perm))
 
 
 def _loop_results(prep, mesh, dist, assig, ctr, n_found, n_init_centers,
@@ -1138,6 +1170,70 @@ def _centers_tensor(centers, prep):
     return _center_structures(C)
 
 
+def _assign_shards(prep, centers, metric):
+    """Every frame of the prepared container ``prep`` to its nearest of
+    ``centers`` on its own shard, with no communication: ``(assigs,
+    dists)``, lists of this process's (n_local,) int32/float32 tensors,
+    one per local shard on its device, in layout order (rows past a
+    shard's real frames hold whatever the blocks gave them). Feature
+    rows take :func:`_assign_all`, RMSD frames :func:`_assign_all_rmsd`
+    (the all-pairs kernel)."""
+    shards = _shards(prep)[0]
+    if metric == 'rmsd':
+        out = [_assign_all_rmsd(sh, _centers_tensor(centers, sh))
+               for sh in shards]
+    else:
+        C = _prepare_data(centers, metric)
+        if C.shape[1] != shards[0].data.shape[1]:
+            raise ValueError('centers must be (k, %d), got %s'
+                             % (shards[0].data.shape[1], tuple(C.shape)))
+        out = [_assign_all(sh.data, torch.as_tensor(C, device=sh.device),
+                           metric) for sh in shards]
+    return [a for a, _ in out], [d for _, d in out]
+
+
+def _first_minima(prep, assigs, dists, n_centers, mesh=None):
+    """For each label ``0..n_centers-1`` of a per-shard assignment of
+    ``prep`` (:func:`_assign_shards`), the global index of its
+    smallest-distance frame, the first such frame on ties: what
+    :func:`~enspara_tpu_torch.cluster.util.find_cluster_centers` finds
+    on the fetched assignment, found on the devices. Frames past each
+    shard's real ones are left out. Each shard takes its minima and the
+    first frame holding each (one center: a ``max`` of the negated
+    distances; more: a scatter by label), then one
+    :func:`~enspara_tpu_torch.parallel.ops.argmax_over_shards` (one
+    collective over the processes) takes the global first minimum of
+    the negated minima: negating a float32 is exact, so ties and order
+    are the host's. Returns the ``(n_centers,)`` int64 indices as
+    numpy, read in one copy; a label that no frame holds reads
+    ``prep.n``."""
+    shards, n_local, first = _shards(prep)
+    n = int(prep.n)
+    vals, args = [], []
+    for s, (sh, a, d) in enumerate(zip(shards, assigs, dists)):
+        start = (first + s) * n_local
+        real = torch.arange(n_local, device=d.device) < sh.n
+        neg = torch.where(real, -d, -math.inf)
+        if n_centers == 1:
+            v, i = neg.max(0)
+            vals.append(v.reshape(1))
+            args.append((i + start).reshape(1))
+            continue
+        # frames past the real ones land in bucket n_centers, dropped
+        lab = torch.where(real, a.long(), n_centers)
+        v = torch.full((n_centers + 1,), -math.inf, device=d.device) \
+            .scatter_reduce(0, lab, neg, 'amax')
+        gi = torch.arange(start, start + n_local, device=d.device)
+        at = torch.where(neg == v[lab], gi, n)
+        i = torch.full((n_centers + 1,), n, dtype=torch.int64,
+                       device=d.device).scatter_reduce(0, lab, at, 'amin')
+        vals.append(v[:n_centers])
+        args.append(i[:n_centers])
+    if mesh is None:
+        mesh = FrameMesh((shards[0].device,))
+    return argmax_over_shards(vals, args, mesh)[1].cpu().numpy()
+
+
 def assign_device(X, centers, metric='euclidean', device=None, mesh=None):
     """Assign every frame to its nearest center: the batched device
     form of ``assign_to_nearest_center`` (JAX ``engine.py:406``, whose
@@ -1172,23 +1268,6 @@ def assign_device(X, centers, metric='euclidean', device=None, mesh=None):
                          'with precision=%r, sort=%r'
                          % (prep.precision, None if prep.perm is None
                             else 'locality'))
-    if metric != 'rmsd':
-        C = _prepare_data(centers, metric)
-        shards = _shards(prep)[0]
-        if C.shape[1] != shards[0].data.shape[1]:
-            raise ValueError('centers must be (k, %d), got %s'
-                             % (shards[0].data.shape[1], tuple(C.shape)))
-        out = [_assign_all(sh.data, torch.as_tensor(C, device=sh.device),
-                           metric) for sh in shards]
-        assigs = host_fetch([a for a, _ in out], mesh)
-        dists = host_fetch([d for _, d in out], mesh)
-    elif isinstance(prep, ShardedRMSDFrames):
-        out = [_assign_all_rmsd(sh, _centers_tensor(centers, sh))
-               for sh in prep.shards]
-        assigs = host_fetch([a for a, _ in out], mesh)
-        dists = host_fetch([d for _, d in out], mesh)
-    else:
-        assigs, dists = _assign_all_rmsd(prep, _centers_tensor(centers, prep))
-        assigs, dists = assigs.cpu().numpy(), dists.cpu().numpy()
-    return (assigs[:prep.n].astype(np.int64),
-            dists[:prep.n].astype(np.float64))
+    assigs, dists = _assign_shards(prep, centers, metric)
+    return (host_fetch(assigs, mesh)[:prep.n].astype(np.int64),
+            host_fetch(dists, mesh)[:prep.n].astype(np.float64))

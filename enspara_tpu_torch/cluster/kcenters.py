@@ -6,7 +6,7 @@ kcenters_device_fused` (the tri-skip CUDA kernel on the card); the
 feature metrics ('euclidean', 'manhattan', 'hamming') in the torch-op
 loop of :func:`~enspara_tpu_torch.cluster.engine.kcenters_device`. A
 warm start from ``init_centers`` assigns the frames to them first
-through :func:`~enspara_tpu_torch.cluster.engine.assign_device`. With
+(:func:`_warm_start`, on the devices, its state the loop's start). With
 ``mesh=`` (a :class:`~enspara_tpu_torch.parallel.mesh.FrameMesh`) the
 frames are sharded over it and both run per shard; with neither
 ``device=`` nor ``mesh=``, host input runs where the JAX function's
@@ -29,7 +29,7 @@ from ..exception import ImproperlyConfigured
 
 from . import engine, util
 from .util import run_timed
-from ..parallel.mesh import resolve_placement
+from ..parallel.mesh import host_fetch, resolve_placement
 from ..util.backend import check_random_state
 from ..util.log import trace_region
 
@@ -196,14 +196,49 @@ def _init_center_data(init_centers):
             for c in init_centers]
 
 
-def _reject_ownerless(init_ctr_inds, n_init, init_assignments):
-    if len(init_ctr_inds) != n_init:
-        owned = set(np.unique(np.asarray(init_assignments)).tolist())
-        missing = sorted(set(range(n_init)) - owned)
+def _reject_ownerless(n_init, owned):
+    """Raise unless every init center ``0..n_init-1`` is among the
+    labels ``owned`` (those that own a frame)."""
+    missing = sorted(set(range(n_init)) - set(np.asarray(owned).tolist()))
+    if missing:
         raise ImproperlyConfigured(
             'init_centers %s own no frames (duplicated centers, or '
             'centers dominated by another init center); remove them '
             'from the warm start' % missing)
+
+
+def _warm_start(X, prep, centers, metric, mesh):
+    """Every frame assigned to the init ``centers`` and each init
+    center's frame (its cluster's first minimum-distance frame), as
+    ``(distances, assignments, center indices)``.
+
+    The assignment runs per shard on float32 frames in the caller's
+    order: on ``prep`` itself, else (bf16 or locality-sorted RMSD
+    frames) on such frames prepared from ``X`` alike. Its state stays
+    on the devices: the centers' frames come from
+    :func:`~enspara_tpu_torch.cluster.engine._first_minima` (one
+    collective, one read of ``len(centers)`` indices), and the
+    per-shard tensors become the loop's start state as they lie. Only
+    where they do not line up with ``prep``'s layout
+    (:func:`~enspara_tpu_torch.cluster.engine._lines_up`: a locality
+    sort) are they fetched to the host, in the caller's order, and
+    counted in ``_kcenters_fast.n_host_warm_starts``."""
+    plain = metric != 'rmsd' or (prep.precision == 'fp32'
+                                 and prep.perm is None)
+    src = prep if plain else engine._prepared(
+        X, metric, device=None if mesh is not None else prep.device,
+        mesh=mesh)
+    assigs, dists = engine._assign_shards(src, centers, metric)
+    # the min-distance frame of each init cluster is its center's
+    # index; an init center that owns no frames has none
+    with trace_region('enspara/kcenters.init_centers'):
+        inds = engine._first_minima(src, assigs, dists, len(centers), mesh)
+        _reject_ownerless(len(centers), np.flatnonzero(inds < src.n))
+    if engine._lines_up(src, prep):
+        return dists, assigs, inds
+    _kcenters_fast.n_host_warm_starts += 1
+    return (host_fetch(dists, mesh)[:src.n], host_fetch(assigs, mesh)[:src.n],
+            inds)
 
 
 def _kcenters_fast(X, metric, n_clusters, dist_cutoff, init_centers,
@@ -213,25 +248,16 @@ def _kcenters_fast(X, metric, n_clusters, dist_cutoff, init_centers,
                                           precision=precision, sort=sort)
     else:
         prep = engine.prepare_sharded(X, metric, mesh=mesh, device=device)
+    _kcenters_fast.n_host_warm_starts = 0
     n_init = 0
     init_distances = init_assignments = init_ctr_inds = None
     init_center_data = []
     if init_centers is not None and len(init_centers):
         init_center_data = _init_center_data(init_centers)
-        # assignment takes float32 frames in the caller's order
-        plain = metric != 'rmsd' or (prep.precision == 'fp32'
-                                     and prep.perm is None)
-        init_assignments, init_distances = engine.assign_device(
-            prep if plain else X, np.stack(init_center_data), metric,
-            device=None if plain or mesh is not None else prep.device,
-            mesh=mesh)
         n_init = len(init_center_data)
-        # the min-distance frame of each init cluster is its center's
-        # index; an init center that owns no frames has none
-        with trace_region('enspara/kcenters.init_centers'):
-            init_ctr_inds = util.find_cluster_centers(init_assignments,
-                                                      init_distances)
-            _reject_ownerless(init_ctr_inds, n_init, init_assignments)
+        with trace_region('enspara/kcenters.warm_start'):
+            init_distances, init_assignments, init_ctr_inds = _warm_start(
+                X, prep, np.stack(init_center_data), metric, mesh)
 
     res = engine.kcenters_device(
         prep, metric, n_clusters=n_clusters, dist_cutoff=dist_cutoff,
@@ -247,6 +273,11 @@ def _kcenters_fast(X, metric, n_clusters, dist_cutoff, init_centers,
     return util.ClusterResult(center_indices=ctr_inds,
                               assignments=res.assignments,
                               distances=res.distances, centers=centers), prep
+
+
+# the warm starts of the last call whose state went through the host
+# (a locality-sorted layout): 0 or 1
+_kcenters_fast.n_host_warm_starts = 0
 
 
 def _kcenters_host(traj, distance_method, n_clusters, dist_cutoff,
@@ -266,7 +297,7 @@ def _kcenters_host(traj, distance_method, n_clusters, dist_cutoff,
         assignments, distances = util.assign_to_nearest_center(
             traj, centers, distance_method)
         ctr_inds = list(util.find_cluster_centers(assignments, distances))
-        _reject_ownerless(ctr_inds, len(centers), assignments)
+        _reject_ownerless(len(centers), assignments[ctr_inds])
 
     while (len(ctr_inds) < n_clusters) and (distances.max() > dist_cutoff):
         new_center_index = int(np.argmax(distances))

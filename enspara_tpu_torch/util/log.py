@@ -22,8 +22,12 @@ these spans:
   labels and distances;
 - ``enspara/kcenters.chunk``: one chunk of the one-device RMSD
   k-centers loop (``CHUNK`` iterations and the host read after them);
-  ``enspara/kcenters.init_centers``: a warm start's host search for the
-  frame of each init center;
+  ``enspara/kcenters.warm_start``: a warm start from ``init_centers``
+  (the assignment to them, the search for their frames and the
+  hand-over of the assignment to the loop as its start state), and
+  inside it ``enspara/kcenters.init_centers``: the search, a per-shard
+  first minimum on the devices, one cross-shard argmax and its one host
+  read of the init centers' frame indices;
 - ``enspara/pam.batch`` (a batch of proposals of the device PAM sweeps),
   and inside it ``enspara/pam.try`` (one proposal past the host-side
   screen), ``enspara/pam.repair`` (a re-rank of the second-nearest
