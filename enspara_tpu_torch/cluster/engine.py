@@ -568,15 +568,23 @@ def _loop_start(prep, n_clusters, dist_cutoff, k_max, init_distances,
 
 
 def _loop_results(prep, mesh, dist, assig, ctr, n_found, n_init_centers,
-                  init_center_indices):
+                  init_center_indices, skipped=None):
     """The k-centers loops' tear-down: the per-shard state fetched to
     the host (from every process of ``mesh``) in the caller's frame
     order, and the centers found, the warm start's as given, as a
-    :class:`KCentersDeviceResult`."""
+    :class:`KCentersDeviceResult`. ``skipped``, the one-device loop's
+    0-d int64 count of skipped tile visits, crosses in the centers' own
+    copy and becomes ``kcenters_device_fused.n_tiles_skipped``."""
     n, perm = prep.n, getattr(prep, 'perm', None)
     dists, assigs = (host_fetch([t.reshape(-1) for t in x], mesh)[:n]
                      for x in (dist, assig))
-    ctr_inds = ctr[:n_found].cpu().numpy().astype(np.int64)
+    head = ctr[:n_found]
+    if skipped is not None:
+        head = torch.cat((head.long(), skipped.reshape(1)))
+    head = head.cpu().numpy().astype(np.int64)
+    ctr_inds = head[:n_found]
+    if skipped is not None:
+        kcenters_device_fused.n_tiles_skipped = int(head[n_found])
     if perm is not None:
         # layout position i is the caller's frame perm[i]
         dists_o, assigs_o = np.empty_like(dists), np.empty_like(assigs)
@@ -594,18 +602,22 @@ def _kcenters_loop(prep, dist, assig, n_start, n_clusters, dist_cutoff,
                    k_max, skip=True):
     """Chunked k-centers from the (1, n_pad) ``dist``/``assig`` state
     (updated in place), with tile skipping or (``skip=False``) without.
-    Returns ``(ctr (k_max,), n_found)``; ``ctr`` holds -1 in the
-    warm-start slots."""
+    Returns ``(ctr (k_max,), n_found, skipped)``; ``ctr`` holds -1 in
+    the warm-start slots, ``skipped`` (0-d int64, on the device) sums
+    the chunks' ``skipcnt``: the tile visits at or below ``md/2``, which
+    the kernel skips (with ``skip=False`` it reads them all the same)."""
     G = int(min(CHUNK, k_max))
     state = start_state(dist, assig, prep.frames_r.shape[0], prep.tile,
                         n_start, n_clusters, dist_cutoff)
     ctr = torch.full((k_max + G,), -1, dtype=torch.int32, device=dist.device)
+    skipcnt = torch.full_like(ctr, -1)
     _, md, i = state.scalars()
     while i < n_clusters and md > dist_cutoff:
         with trace_region('enspara/kcenters.chunk'):
-            ctr[i:i + G] = kcenters_chunk(prep, state, G, skip=skip)[0]
+            ctr[i:i + G], skipcnt[i:i + G] = kcenters_chunk(prep, state, G,
+                                                            skip=skip)
             _, md, i = state.scalars()
-    return ctr[:k_max], i
+    return ctr[:k_max], i, skipcnt.clamp(min=0).sum()
 
 
 class ShardedKCentersState(NamedTuple):
@@ -824,12 +836,17 @@ def kcenters_device_fused(X, n_clusters=None, dist_cutoff=None,
     given in it too.
 
     Returns a :class:`KCentersDeviceResult` of host arrays (on every
-    process of a mesh that spans processes). Over shards, the sharded
-    loop is one ``enspara/kcenters.sharded`` span, each global argmax
-    the host issues an ``enspara/kcenters.global_best`` span,
+    process of a mesh that spans processes). On one device, the loop is
+    one ``enspara/kcenters.loop`` span, each of its chunks an
+    ``enspara/kcenters.chunk`` span, and
+    ``kcenters_device_fused.n_tiles_skipped`` counts the tile visits the
+    chunk kernel skipped. Over shards, the sharded loop is one
+    ``enspara/kcenters.sharded`` span, each global argmax the host
+    issues an ``enspara/kcenters.global_best`` span,
     ``kcenters_device_fused.n_collectives`` counts the call's collectives
     over the processes (those its CUDA graph replays ran included) and
-    ``kcenters_device_fused.n_replays`` the replays.
+    ``kcenters_device_fused.n_replays`` the replays. Either way the
+    fetch of the results is one ``enspara/kcenters.results`` span.
     """
     if isinstance(X, (PreparedRMSDFrames, ShardedRMSDFrames)):
         if precision is not None and precision != X.precision:
@@ -852,15 +869,18 @@ def kcenters_device_fused(X, n_clusters=None, dist_cutoff=None,
             _, ctr, n_found = _kcenters_loop_fused_sharded(
                 prep, dist, assig, int(n_init_centers), n_clusters, cutoff,
                 k_max, mesh, tri_skip=tri_skip)
-        res = _loop_results(prep, mesh, dist, assig, ctr, n_found,
-                            n_init_centers, init_center_indices)
+        with trace_region('enspara/kcenters.results'):
+            res = _loop_results(prep, mesh, dist, assig, ctr, n_found,
+                                n_init_centers, init_center_indices)
         kcenters_device_fused.n_collectives = mesh.n_collectives - before
         return res
-    ctr, n_found = _kcenters_loop(prep, dist[0], assig[0],
-                                  int(n_init_centers), n_clusters, cutoff,
-                                  k_max, skip=tri_skip)
-    return _loop_results(prep, None, dist, assig, ctr, n_found,
-                         n_init_centers, init_center_indices)
+    with trace_region('enspara/kcenters.loop'):
+        ctr, n_found, skipped = _kcenters_loop(
+            prep, dist[0], assig[0], int(n_init_centers), n_clusters, cutoff,
+            k_max, skip=tri_skip)
+    with trace_region('enspara/kcenters.results'):
+        return _loop_results(prep, None, dist, assig, ctr, n_found,
+                             n_init_centers, init_center_indices, skipped)
 
 
 # the collectives over the processes of the last sharded call (the loop
@@ -868,6 +888,9 @@ def kcenters_device_fused(X, n_clusters=None, dist_cutoff=None,
 kcenters_device_fused.n_collectives = 0
 # the CUDA graph replays of the last sharded call's loop
 kcenters_device_fused.n_replays = 0
+# the tile visits at or below md/2 in the last one-device call's loop:
+# those the chunk kernel skipped (``skipcnt`` summed on the device)
+kcenters_device_fused.n_tiles_skipped = 0
 
 
 def _kcenters_loop_features(prep, dist, assig, n_start, n_clusters,

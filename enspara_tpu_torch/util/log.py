@@ -20,8 +20,12 @@ these spans:
 - ``enspara/khybrid.kcenters``, ``enspara/khybrid.pam``: the two stages
   of ``hybrid`` and ``hybrid_device``, each ending in its host fetch of
   labels and distances;
-- ``enspara/kcenters.chunk``: one chunk of the one-device RMSD
-  k-centers loop (``CHUNK`` iterations and the host read after them);
+- ``enspara/kcenters.loop``: the one-device RMSD k-centers loop of one
+  ``kcenters_device_fused`` call, and inside it
+  ``enspara/kcenters.chunk``: one chunk of it (``CHUNK`` iterations and
+  the host read after them); ``enspara/kcenters.results``: the fetch of
+  that call's results to the host after its loop, one device or
+  sharded (labels, distances and centers in the caller's order);
   ``enspara/kcenters.warm_start``: a warm start from ``init_centers``
   (the assignment to them, the search for their frames and the
   hand-over of the assignment to the loop as its start state), and
